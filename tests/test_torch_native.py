@@ -1,0 +1,308 @@
+"""The port's native layer on the CPU: the gcc build (vtpu_torch/native.py)
+and the interposer libvgpu.so, LD_PRELOADed into a child process that
+drives the mock libcuda.so.1 (vtpu_torch/csrc/mock_cuda.c) through ctypes —
+the way cudart reaches the driver: dlopen("libcuda.so.1"), dlsym, and
+cuGetProcAddress by base name + version."""
+
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+
+from vtpu_torch import api, native
+from vtpu_torch.enforce.region import RegionView
+
+MiB = 1 << 20
+LIMIT = 64 * MiB
+PITCH_BYTES = 1024 * 1000  # 1000 rows of 1000 B, pitch rounded to 512
+
+CHILD = textwrap.dedent(r"""
+    import ctypes, json, os, sys
+    from ctypes import (CFUNCTYPE, POINTER, byref, c_char_p, c_int,
+                        c_size_t, c_uint, c_uint64, c_ulonglong, c_void_p)
+
+    mode = sys.argv[1]
+    cu = ctypes.CDLL("libcuda.so.1")
+    vg = ctypes.CDLL(os.environ["LD_PRELOAD"]) if "LD_PRELOAD" in os.environ \
+        else None
+    u64p = POINTER(c_ulonglong)
+    ALLOC = CFUNCTYPE(c_int, u64p, c_size_t)
+    FREE = CFUNCTYPE(c_int, c_ulonglong)
+    INFO = CFUNCTYPE(c_int, POINTER(c_size_t), POINTER(c_size_t))
+    PITCH = CFUNCTYPE(c_int, u64p, POINTER(c_size_t), c_size_t, c_size_t,
+                      c_uint)
+
+    class Loc(ctypes.Structure):
+        _fields_ = [("type", c_int), ("id", c_int)]
+
+    class Prop(ctypes.Structure):
+        _fields_ = [("type", c_int), ("handle_types", c_int),
+                    ("location", Loc), ("win32", c_void_p),
+                    ("flags", ctypes.c_ubyte * 8)]
+
+    CREATE = CFUNCTYPE(c_int, u64p, c_size_t, POINTER(Prop), c_ulonglong)
+    RELEASE = CFUNCTYPE(c_int, c_ulonglong)
+    ASYNC = CFUNCTYPE(c_int, u64p, c_size_t, c_void_p)
+    GPA2 = CFUNCTYPE(c_int, c_char_p, POINTER(c_void_p), c_int, c_uint64,
+                     POINTER(c_int))
+    GPA1 = CFUNCTYPE(c_int, c_char_p, POINTER(c_void_p), c_int, c_uint64)
+
+    def addr(f):
+        return ctypes.cast(f, c_void_p).value
+
+    gpa2 = GPA2(addr(cu.cuGetProcAddress_v2))
+
+    def via2(base, version, flags=0):
+        p, st = c_void_p(), c_int(-1)
+        rc = gpa2(base.encode(), byref(p), version, flags, byref(st))
+        assert rc == 0 and st.value == 0, (base, rc, st.value)
+        return p.value
+
+    if mode == "exact":
+        def resolve(base, exact, version):
+            return addr(getattr(cu, exact))
+    elif mode == "gpa1":
+        gpa1 = GPA1(via2("cuGetProcAddress", 11030))
+
+        def resolve(base, exact, version):
+            p = c_void_p()
+            assert gpa1(base.encode(), byref(p), version, 0) == 0, base
+            return p.value
+    else:
+        def resolve(base, exact, version):
+            return via2(base, version)
+
+    ENTRIES = [("alloc", "cuMemAlloc", "cuMemAlloc_v2", 3020),
+               ("pitch", "cuMemAllocPitch", "cuMemAllocPitch_v2", 3020),
+               ("free", "cuMemFree", "cuMemFree_v2", 3020),
+               ("info", "cuMemGetInfo", "cuMemGetInfo_v2", 3020),
+               ("create", "cuMemCreate", "cuMemCreate", 10020),
+               ("release", "cuMemRelease", "cuMemRelease", 10020)]
+    fns = {name: resolve(base, exact, v) for name, base, exact, v in ENTRIES}
+    out = {"hooked": {name: vg is not None and fns[name] == addr(
+        getattr(vg, exact)) for name, _, exact, _ in ENTRIES}}
+    if mode == "async":
+        a = c_ulonglong()
+        ASYNC(via2("cuMemAllocAsync", 12000, 2))(byref(a), 4096, None)
+        sys.exit(0)  # unreachable under enforcement
+
+    alloc, free, info = ALLOC(fns["alloc"]), FREE(fns["free"]), \
+        INFO(fns["info"])
+
+    def meminfo():
+        f, t = c_size_t(), c_size_t()
+        return [info(byref(f), byref(t)), f.value, t.value]
+
+    MiB = 1 << 20
+    out["info0"] = meminfo()
+    a, b, p, h = c_ulonglong(), c_ulonglong(), c_ulonglong(), c_ulonglong()
+    out["alloc"] = alloc(byref(a), 40 * MiB)
+    out["info1"] = meminfo()
+    out["alloc_over"] = alloc(byref(b), 30 * MiB)
+    pitch = c_size_t()
+    out["pitch"] = [PITCH(fns["pitch"])(byref(p), byref(pitch), 1000, 1000,
+                                        4), pitch.value]
+    prop = Prop()
+    prop.location.type, prop.location.id = 1, 0
+    create = CREATE(fns["create"])
+    out["create"] = create(byref(h), 8 * MiB, byref(prop), 0)
+    out["create_over"] = create(byref(c_ulonglong()), 64 * MiB,
+                                byref(prop), 0)
+    out["info2"] = meminfo()
+    out["active"] = vg.vgpu_interposer_active() if vg is not None else None
+    print(json.dumps(out), flush=True)
+    if "--wait" in sys.argv:
+        sys.stdin.readline()
+    done = {"release": RELEASE(fns["release"])(h.value),
+            "free": [free(a.value), free(p.value)]}
+    if out["alloc_over"] == 0:
+        done["free"].append(free(b.value))
+    done["info3"] = meminfo()
+    print(json.dumps(done), flush=True)
+""")
+
+
+@pytest.fixture(scope="module")
+def libs():
+    return native.build_all()
+
+
+def child_env(tmp_path, **extra):
+    cache = tmp_path / "containers" / "pod-uid_0" / "vgpu.cache"
+    cache.parent.mkdir(parents=True, exist_ok=True)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("CUDA_", "LD_PRELOAD"))}
+    env.update({
+        "LD_PRELOAD": native.interposer(),
+        "LD_LIBRARY_PATH": native.mock_cuda_dir(),
+        "MOCK_CUDA_TOTAL": "1g",
+        api.ENV_DEVICE_MEMORY_LIMIT: "64m",
+        api.ENV_SHARED_CACHE: str(cache),
+    })
+    env.update(extra)
+    return env, str(cache)
+
+
+def run_child(env, mode, *args, timeout=60):
+    proc = subprocess.run([sys.executable, "-c", CHILD, mode, *args],
+                          env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    return proc
+
+
+def parse(proc):
+    assert proc.returncode == 0, proc.stderr
+    first, second = proc.stdout.strip().splitlines()
+    return json.loads(first), json.loads(second)
+
+
+def test_build_outputs_and_rebuild_when_stale(libs):
+    assert set(libs) == set(native.TARGETS)
+    for path in libs.values():
+        assert os.path.getsize(path) > 0
+    core = libs["libvgpucore.so"]
+    os.utime(core, (1, 1))  # older than every source
+    assert native.core_library() == core
+    assert os.path.getmtime(core) > 1
+
+
+def test_build_failure_raises(monkeypatch):
+    monkeypatch.setenv("CC", "no-such-compiler-vgpu")
+    monkeypatch.setattr(native, "_stale", lambda out, deps: True)
+    with pytest.raises(native.NativeBuildFailure):
+        native.core_library()
+
+
+@pytest.mark.parametrize("mode", ["exact", "gpa2", "gpa1"])
+def test_interposer_charges_refuses_and_uncharges(tmp_path, libs, mode):
+    """Every way of reaching the driver lands on the hooks: dlsym of the
+    exported name, and cuGetProcAddress (v2, and the v1 that v2 hands out
+    below 12000) asked for base names with a version."""
+    env, cache = child_env(tmp_path)
+    out, done = parse(run_child(env, mode))
+    assert all(out["hooked"].values()), out["hooked"]
+    assert out["active"] == 1
+    assert out["info0"] == [0, LIMIT, LIMIT]
+    assert out["alloc"] == 0
+    assert out["info1"] == [0, LIMIT - 40 * MiB, LIMIT]
+    assert out["alloc_over"] == 2  # CUDA_ERROR_OUT_OF_MEMORY, mock untouched
+    assert out["pitch"] == [0, 1024]
+    assert out["create"] == 0 and out["create_over"] == 2
+    assert out["info2"] == [0, LIMIT - 48 * MiB - PITCH_BYTES, LIMIT]
+    assert done["release"] == 0 and done["free"] == [0, 0]
+    assert done["info3"] == [0, LIMIT, LIMIT]
+
+
+def test_monitor_sees_the_child_and_a_clean_region_after_exit(tmp_path,
+                                                              libs):
+    env, cache = child_env(tmp_path)
+    proc = subprocess.Popen([sys.executable, "-c", CHILD, "gpa2", "--wait"],
+                            env=env, stdin=subprocess.PIPE,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        json.loads(proc.stdout.readline())
+        with RegionView(cache) as view:
+            assert [p.pid for p in view.procs()] == [proc.pid]
+            assert view.used(0) == 48 * MiB + PITCH_BYTES
+            assert view.hbm_limit(0) == LIMIT
+        out, err = proc.communicate("go\n", timeout=60)
+    finally:
+        proc.kill()
+        proc.wait(timeout=60)
+    assert proc.returncode == 0, err
+    assert json.loads(out)["info3"] == [0, LIMIT, LIMIT]
+    with RegionView(cache) as view:
+        assert view.procs() == [] and view.used(0) == 0
+
+
+SIBLING = textwrap.dedent(r"""
+    import ctypes, json
+    from ctypes import byref, c_size_t, c_ulonglong
+    cu = ctypes.CDLL("libcuda.so.1")
+    cu.cuMemFree_v2.argtypes = [c_ulonglong]
+    MiB = 1 << 20
+    a, b, f, t = c_ulonglong(), c_ulonglong(), c_size_t(), c_size_t()
+    out = [cu.cuMemAlloc_v2(byref(a), 20 * MiB),
+           cu.cuMemAlloc_v2(byref(b), 10 * MiB)]
+    cu.cuMemGetInfo_v2(byref(f), byref(t))
+    out += [f.value, t.value, cu.cuMemFree_v2(b.value)]
+    print(json.dumps(out))
+""")
+
+
+def test_quota_is_shared_by_the_containers_processes(tmp_path, libs):
+    """The region is per container: a second process's charge counts
+    against what the first one holds."""
+    env, cache = child_env(tmp_path)
+    first = subprocess.Popen([sys.executable, "-c", CHILD, "gpa2", "--wait"],
+                             env=env, stdin=subprocess.PIPE,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True)
+    try:
+        json.loads(first.stdout.readline())  # holds 48 MiB + the pitch
+        proc = subprocess.run([sys.executable, "-c", SIBLING], env=env,
+                              capture_output=True, text=True, timeout=60)
+        assert proc.returncode == 0, proc.stderr
+        held = 48 * MiB + PITCH_BYTES
+        assert json.loads(proc.stdout) == [
+            2, 0, LIMIT - held - 10 * MiB, LIMIT, 0]
+        first.communicate("go\n", timeout=60)
+    finally:
+        first.kill()
+        first.wait(timeout=60)
+    assert first.returncode == 0
+    with RegionView(cache) as view:
+        assert view.procs() == [] and view.used(0) == 0
+
+
+def test_disable_control_passes_through(tmp_path, libs):
+    env, cache = child_env(tmp_path, **{api.ENV_DISABLE_CONTROL: "1"})
+    out, done = parse(run_child(env, "gpa2"))
+    assert not any(out["hooked"].values())
+    assert out["active"] == 0
+    total = 1 << 30  # the mock's own, unspoofed
+    assert out["info0"] == [0, total, total]
+    assert out["alloc"] == 0 and out["alloc_over"] == 0
+    assert done["free"] == [0, 0, 0]
+    assert not os.path.exists(cache)
+
+
+def test_stream_ordered_allocator_exits_instead_of_running_unenforced(
+        tmp_path, libs):
+    env, _ = child_env(tmp_path)
+    proc = run_child(env, "async")
+    assert proc.returncode == 78, proc.stderr
+    assert "cudaMallocAsync" in proc.stderr
+
+
+def test_dlsym_rtld_next_still_finds_the_next_object(tmp_path, libs):
+    """The interposer defines dlsym, so glibc sees IT as the caller of
+    every dlsym(RTLD_NEXT, ...); it must answer for the real caller."""
+    src = tmp_path / "next.c"
+    src.write_text(textwrap.dedent("""
+        #define _GNU_SOURCE
+        #include <dlfcn.h>
+        void *next_of(const char *s) { return dlsym(RTLD_NEXT, s); }
+    """))
+    so = tmp_path / "libnext.so"
+    subprocess.run(["gcc", "-shared", "-fPIC", "-o", str(so), str(src),
+                    "-ldl"], check=True)
+    script = textwrap.dedent(f"""
+        import ctypes
+        lib = ctypes.CDLL({str(so)!r})
+        lib.next_of.restype = ctypes.c_void_p
+        lib.next_of.argtypes = [ctypes.c_char_p]
+        libc = ctypes.CDLL("libc.so.6")
+        want = ctypes.cast(libc.strlen, ctypes.c_void_p).value
+        got = lib.next_of(b"strlen")
+        assert got == want, (got, want)
+        assert lib.next_of(b"no_such_symbol_vgpu") is None
+    """)
+    env, _ = child_env(tmp_path)
+    proc = subprocess.run([sys.executable, "-c", script], env=env,
+                          capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 0, proc.stderr

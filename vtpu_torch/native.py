@@ -1,0 +1,107 @@
+"""Builds the port's native libraries with gcc at first use.
+
+The counterpart of ``lib/vtpu/Makefile``'s ``libvtpucore.so`` and
+``libvtpu.so`` targets, without make: each library is compiled from
+``vtpu_torch/csrc/`` into ``vtpu_torch/_build/`` (not committed) when it is
+missing or older than one of its sources, and a failed build raises.
+
+- ``libvgpucore.so``: the shared-region ABI (``shared_region.c``), loaded by
+  :mod:`vtpu_torch.enforce.region` through ctypes.
+- ``libvgpu.so``: the CUDA driver-API interposer (``libvgpu.c``), loaded
+  with ``LD_PRELOAD`` into a quota-limited process.
+- ``libcuda.so.1`` under ``_build/mock_cuda/``: a stand-in driver
+  (``mock_cuda.c``) for tests on machines without a GPU; put the directory
+  on ``LD_LIBRARY_PATH``.
+
+Builds take a file lock, so concurrent processes (test workers) build each
+library once, and each output is renamed into place whole.
+"""
+
+from __future__ import annotations
+
+import fcntl
+import os
+import shutil
+import subprocess
+from typing import Dict, List, Tuple
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
+
+CFLAGS = ["-O2", "-g", "-Wall", "-Wextra", "-fPIC", "-pthread"]
+# bind intra-library calls locally: the interposer defines dlsym and the
+# cu* entry points, and must never reach its own exports through the PLT
+SOFLAGS = ["-shared", "-Wl,-Bsymbolic-functions"]
+
+_REGION = ["shared_region.c", "shared_region.h", "prof_hook.h"]
+
+# output (relative to BUILD) -> (sources compiled, headers depended on,
+# extra link flags)
+TARGETS: Dict[str, Tuple[List[str], List[str], List[str]]] = {
+    "libvgpucore.so": (["shared_region.c"], _REGION[1:], []),
+    "libvgpu.so": (["libvgpu.c", "shared_region.c"],
+                   _REGION[1:] + ["cuda_min.h"], ["-ldl"]),
+    os.path.join("mock_cuda", "libcuda.so.1"): (
+        ["mock_cuda.c"], ["cuda_min.h"], ["-Wl,-soname,libcuda.so.1"]),
+}
+
+
+class NativeBuildFailure(RuntimeError):
+    """gcc is missing or refused a source."""
+
+
+def _stale(out: str, deps: List[str]) -> bool:
+    if not os.path.exists(out):
+        return True
+    built = os.path.getmtime(out)
+    return any(os.path.getmtime(os.path.join(CSRC, d)) > built for d in deps)
+
+
+def build(target: str) -> str:
+    """Path of the built library ``target`` (a key of :data:`TARGETS`),
+    compiling it first when it is missing or stale."""
+    sources, headers, ldflags = TARGETS[target]
+    out = os.path.join(BUILD, target)
+    if not _stale(out, sources + headers):
+        return out
+    cc = os.environ.get("CC", "gcc")
+    if shutil.which(cc) is None:
+        raise NativeBuildFailure(f"{cc} not found; cannot build {target}")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(os.path.join(BUILD, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not _stale(out, sources + headers):
+            return out  # another process built it while we waited
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = ([cc] + CFLAGS + SOFLAGS + ["-o", tmp]
+               + [os.path.join(CSRC, s) for s in sources]
+               + ldflags)
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+            raise NativeBuildFailure(
+                f"building {target} failed ({' '.join(cmd)}):\n"
+                f"{proc.stderr}")
+        os.replace(tmp, out)
+    return out
+
+
+def core_library() -> str:
+    """``libvgpucore.so``, the shared-region library."""
+    return build("libvgpucore.so")
+
+
+def interposer() -> str:
+    """``libvgpu.so``, the LD_PRELOAD interposer."""
+    return build("libvgpu.so")
+
+
+def mock_cuda_dir() -> str:
+    """Directory holding the mock ``libcuda.so.1``, for LD_LIBRARY_PATH."""
+    return os.path.dirname(build(os.path.join("mock_cuda", "libcuda.so.1")))
+
+
+def build_all() -> Dict[str, str]:
+    """Build every library; name -> path."""
+    return {t: build(t) for t in TARGETS}
