@@ -10,26 +10,46 @@ built:
    torch/CUDA versions;
 2. builds the native libraries (vtpu_torch/native.py: libvgpucore.so,
    libvgpu.so) with gcc;
-3. model phase: ai-benchmark case 1.1, ResNet-V2-50 inference at batch 50,
-   346x346x3, 1000 classes, bf16 compute with f32 parameters, channels_last,
-   weights from a seeded generator. Warm-up, then timed steps (CUDA
-   events); checks the logits' shape, type and finiteness and their
-   relative L2 error against the port's own f32 forward of the same weights
-   (TF32 off), within the bf16 tolerance of the CPU parity tests (5e-2);
-   also runs ``vtpu_torch.entry()`` on the card;
-4. quota phase, twice (the default caching allocator, then
-   ``expandable_segments:True``): a child process started with
-   ``LD_PRELOAD=libvgpu.so``, a 12 GiB quota and its own region file calls
-   ``vtpu_torch.enforce.install()`` and runs the same steps; it checks that
-   ``torch.cuda.mem_get_info()`` shows the quota, that the region's charge
-   matches ``torch.cuda.memory_reserved()`` within a stated margin, and that
-   one allocation past the quota raises ``torch.OutOfMemoryError`` and the
-   model still runs after it. The parent reads the region as the node
-   monitor does (``RegionView``): the child had a slot while it ran, and the
-   region is clean after it exits. A third child selects
-   ``backend:cudaMallocAsync``, which the interposer does not enforce yet,
-   and must stop at its first allocation;
-5. prints the port's native components (the JAX package has no TPU kernel,
+3. case 1.1 phase: ai-benchmark case 1.1, ResNet-V2-50 inference at batch
+   50, 346x346x3, 1000 classes, bf16 compute with f32 parameters,
+   channels_last, weights from a seeded generator. Warm-up, then timed
+   steps (CUDA events); checks the logits' shape, type and finiteness and
+   their relative L2 error against the port's own f32 forward of the same
+   weights (TF32 off), within the bf16 tolerance of the CPU parity tests
+   (5e-2); also runs ``vtpu_torch.entry()`` on the card;
+4. case 1.2 phase: ResNet-V2-50 training at batch 20, 346x346x3, 1000
+   classes, bf16 compute, the default SGD. Warm-up, then timed steps on
+   distinct seeded batches; every loss finite. From the same weights and
+   batch, one step three ways: bf16 and f32 (TF32 off) on the card, and
+   f32 on the host CPU. The f32 step on the card holds the whole step to
+   the CPU's (loss within 1e-4 relative, parameter update within relative
+   L2 5e-2); the bf16 step's loss is within 5e-2 of the f32 step's. The
+   bf16 update's distance from the f32 update is printed, not gated: at
+   initialisation bf16 rounding moves the whole update by about its own
+   size, in the JAX reference too (PERF.md). Prints ms/step, img/s and
+   peak memory;
+5. sharded phase: ``build_sharded_train_step`` on a 1x1 mesh over an NCCL
+   group of one rank, from the same weights and batch as the plain step,
+   in bf16 and in f32 (TF32 off): in f32 the loss within 1e-4 relative
+   and the whole update within relative L2 5e-2 of the plain step's, in
+   bf16 the loss within 5e-2; then ``vtpu_torch.dryrun_multichip(1)``;
+6. quota phases, for case 1.1 (a 12 GiB quota) and case 1.2, each under
+   the three PyTorch allocators (the default caching allocator,
+   ``expandable_segments:True``, ``backend:cudaMallocAsync``). Case 1.2's
+   quota under an allocator is its peak ``max_memory_reserved()`` alone
+   under that allocator (phase 4 for the default one, a child without the
+   interposer for the others) plus 25%, rounded up to whole GiB:
+   a child started with ``LD_PRELOAD=libvgpu.so`` and its own region file
+   calls ``vtpu_torch.enforce.install()`` and runs the case's steps; it
+   checks that ``torch.cuda.mem_get_info()`` shows the quota, that the
+   region's charge matches ``torch.cuda.memory_reserved()`` within a
+   stated margin, and that one allocation past the quota raises
+   ``torch.OutOfMemoryError`` and the case still runs after it. The
+   parent reads the region as the node monitor does (``RegionView``): the
+   child had a slot while it ran, and the region is clean after it exits;
+   it also counts the times the interposer trimmed a memory pool at the
+   quota (from its log);
+7. prints the port's native components (the JAX package has no TPU kernel,
    so ``kernels`` is empty) and, last, ``{"ok": true, "device": ...}``.
 
 Any failed phase ends the run with a non-zero exit and no final line. So
@@ -38,7 +58,9 @@ does a machine without CUDA, or a directory without the repository.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import os
 import select
 import shutil
@@ -56,19 +78,37 @@ from vtpu_torch import native  # noqa: E402
 from vtpu_torch.enforce import install  # noqa: E402
 from vtpu_torch.enforce.region import RegionView  # noqa: E402
 from vtpu_torch.models import BENCH_CASES, get_model  # noqa: E402
-from vtpu_torch.models.train import init_model, make_infer_step  # noqa: E402
+from vtpu_torch.models.train import (  # noqa: E402
+    build_sharded_train_step,
+    init_model,
+    make_infer_step,
+    make_mesh,
+    make_train_step,
+)
 
-CASE = next(c for c in BENCH_CASES if c.case == "1.1")
-QUOTA = 12 << 30
-QUOTA_ENV = "12g"
-# bf16 logits against the f32 forward: the CPU parity tests' tolerance
-BF16_REL_L2 = 5e-2
+CASES = {c.case: c for c in BENCH_CASES if c.case in ("1.1", "1.2")}
+GiB = 1 << 30
+INFER_QUOTA = 12 * GiB
+ALLOCATORS = ("", "expandable_segments:True", "backend:cudaMallocAsync")
+# bf16 against the f32 computation: the CPU parity tests' tolerance
+BF16_REL = 5e-2
+# two f32 implementations of one loss (card without TF32, host CPU)
+F32_REL = 1e-4
 # region charge minus torch.cuda.memory_reserved(): device memory that
-# libraries in the process take with cuMemAlloc outside PyTorch's caching
-# allocator. Measured at 67,266,308 B on an H100 (PERF.md); the margin
-# leaves room for library versions that take more.
-RESERVED_MARGIN = 128 << 20
-WARMUP, STEPS = 3, 20
+# libraries in the process take with cuMemAlloc outside PyTorch's
+# allocator, per thread that uses them. Measured on an H100 (PERF.md) at
+# 67,266,308 B for inference and twice that for training, whose backward
+# runs on autograd's own thread; the margin leaves room for library
+# versions that take more.
+RESERVED_MARGIN = 256 << 20
+# case 1.2's quota under an allocator: its peak reserved memory alone under
+# that allocator plus this share (a cudaMallocAsync pool reserves ~1.3x what
+# the caching allocator does for the same steps, PERF.md)
+TRAIN_HEADROOM = 0.25
+# what libvgpu.so logs (LIBCUDA_LOG_LEVEL=3) when it trims a pool at the quota
+TRIM_LOG = "memory pool at the quota, trimmed"
+WARMUP = 3
+STEPS = {"1.1": 10, "1.2": 10}
 CHILD_TIMEOUT_S = 300
 
 
@@ -89,64 +129,98 @@ def card() -> str:
     return out[0].strip()
 
 
-def build_case(dtype: torch.dtype, seed: int = 0):
-    """Case 1.1's model on the card with weights from ``seed``, and its
-    NHWC input batch."""
-    model = get_model(CASE.model, num_classes=CASE.classes, dtype=dtype,
+def make_batch(case, seed: int):
+    """A seeded NHWC batch of ``case`` on the card, and its labels."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((case.batch,) + case.shape, generator=gen)
+    y = torch.randint(0, case.classes, (case.batch,), generator=gen)
+    return x.cuda(), y.cuda()
+
+
+def build_model(case, dtype: torch.dtype, seed: int = 0):
+    """``case``'s model on the card, channels_last, with weights from
+    ``seed``."""
+    model = get_model(case.model, num_classes=case.classes, dtype=dtype,
                       device="cuda").to(memory_format=torch.channels_last)
-    x = torch.randn((CASE.batch,) + CASE.shape,
-                    generator=torch.Generator().manual_seed(seed)).cuda()
-    init_model(model, x, torch.Generator().manual_seed(seed + 1))
-    return model, x
+    init_model(model, make_batch(case, seed)[0],
+               torch.Generator().manual_seed(seed + 1))
+    return model
 
 
-def time_steps(step, x):
-    """(last logits, device ms per step from CUDA events, host ms per
-    step)."""
-    for _ in range(WARMUP):
-        out = step(x)
+def time_steps(run, steps: int):
+    """Warm up, then ``steps`` calls of ``run(i)``: (outputs of the timed
+    calls, device ms per step from CUDA events, host ms per step)."""
+    for i in range(WARMUP):
+        run(i)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     start.record()
-    for _ in range(STEPS):
-        out = step(x)
+    outs = [run(WARMUP + i) for i in range(steps)]
     end.record()
     torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t0) * 1e3 / STEPS
-    return out, start.elapsed_time(end) / STEPS, host_ms
+    host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    return outs, start.elapsed_time(end) / steps, host_ms
 
 
-def check_logits(out: torch.Tensor) -> None:
-    check(tuple(out.shape) == (CASE.batch, CASE.classes),
+def run_case(case, model, steps: int):
+    """The case's steps on its model: (last output, ms, host ms, img/s).
+    Inference reuses one batch; training takes a distinct seeded batch
+    each step and checks that every loss is finite."""
+    if case.mode == "inference":
+        x, _ = make_batch(case, 0)
+        step = make_infer_step(model)
+        outs, ms, host_ms = time_steps(lambda i: step(x), steps)
+        check_logits(case, outs[-1])
+    else:
+        batches = [make_batch(case, 100 + i) for i in range(WARMUP + steps)]
+        step, _ = make_train_step(model)
+        outs, ms, host_ms = time_steps(lambda i: step(*batches[i]), steps)
+        losses = torch.stack(outs)
+        check(bool(torch.isfinite(losses).all()),
+              f"case {case.case}: non-finite loss in {losses.tolist()}")
+    return outs[-1], ms, host_ms, case.batch / (ms / 1e3)
+
+
+def check_logits(case, out: torch.Tensor) -> None:
+    check(tuple(out.shape) == (case.batch, case.classes),
           f"logits shape {tuple(out.shape)}")
     check(out.dtype == torch.float32, f"logits dtype {out.dtype}")
     check(bool(torch.isfinite(out).all()), "non-finite logits")
 
 
-def model_phase(name: str) -> dict:
-    model, x = build_case(torch.bfloat16)
-    torch.cuda.reset_peak_memory_stats()
-    out, ms, host_ms = time_steps(make_infer_step(model), x)
-    check_logits(out)
-    peak = torch.cuda.max_memory_allocated()
+class NoTF32:
+    def __enter__(self):
+        self.saved = (torch.backends.cudnn.allow_tf32,
+                      torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
 
-    tf32 = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        ref_model = get_model(CASE.model, num_classes=CASE.classes,
+    def __exit__(self, *exc):
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = self.saved
+
+
+def rel_l2(got: torch.Tensor, ref: torch.Tensor) -> float:
+    return float((got.double() - ref.double()).norm() / ref.double().norm())
+
+
+def infer_phase(name: str) -> dict:
+    case = CASES["1.1"]
+    model = build_model(case, torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    out, ms, host_ms, img_s = run_case(case, model, STEPS["1.1"])
+    peak = torch.cuda.max_memory_allocated()
+    x, _ = make_batch(case, 0)
+    with NoTF32():
+        ref_model = get_model(case.model, num_classes=case.classes,
                               dtype=torch.float32, device="cuda").to(
             memory_format=torch.channels_last)
         ref_model.load_state_dict(model.state_dict())
         ref = make_infer_step(ref_model)(x)
-    finally:
-        torch.backends.cudnn.allow_tf32, \
-            torch.backends.cuda.matmul.allow_tf32 = tf32
-    rel = float((out - ref).norm() / ref.norm())
-    check(rel <= BF16_REL_L2, f"bf16 logits rel L2 {rel} > {BF16_REL_L2}")
+    rel = rel_l2(out, ref)
+    check(rel <= BF16_REL, f"bf16 logits rel L2 {rel} > {BF16_REL}")
 
     import vtpu_torch
     fn, args = vtpu_torch.entry()
@@ -154,60 +228,243 @@ def model_phase(name: str) -> dict:
     check(tuple(eout.shape) == (8, 1000)
           and bool(torch.isfinite(eout).all()), "entry() logits")
 
-    img_s = CASE.batch / (ms / 1e3)
-    print(f"case 1.1 native: ResNet-V2-50 bf16 batch {CASE.batch} "
-          f"{CASE.shape[0]}x{CASE.shape[1]}: {ms:.3f} ms/step (CUDA events, "
-          f"{STEPS} steps), host {host_ms:.3f} ms/step, {img_s:.1f} img/s, "
-          f"bf16-vs-f32 rel L2 {rel:.3e}, peak allocated {peak} B; "
-          f"on {name}", flush=True)
-    del model, ref_model, x, out, ref
+    print(f"case 1.1 native: ResNet-V2-50 bf16 batch {case.batch} "
+          f"{case.shape[0]}x{case.shape[1]}: {ms:.3f} ms/step (CUDA events, "
+          f"{STEPS['1.1']} steps), host {host_ms:.3f} ms/step, "
+          f"{img_s:.1f} img/s, bf16-vs-f32 rel L2 {rel:.3e}, peak allocated "
+          f"{peak} B; on {name}", flush=True)
+    del model, ref_model, x, out, ref, fn, args, eout
     torch.cuda.empty_cache()
-    return {"phase": "native", "step_ms": ms, "host_step_ms": host_ms,
-            "img_s": img_s, "rel_l2_bf16_vs_f32": rel,
-            "peak_allocated_bytes": peak}
+    return {"phase": "case 1.1 native", "step_ms": ms,
+            "host_step_ms": host_ms, "img_s": img_s,
+            "rel_l2_bf16_vs_f32": rel, "peak_allocated_bytes": peak}
 
 
-def quota_child() -> None:
+def one_step(model, params, step, x, y):
+    """(loss, {name: new - old}) of one ``step`` over ``params``."""
+    def whole(p):
+        p = p.detach()
+        return p.full_tensor() if hasattr(p, "full_tensor") else p
+    old = {n: whole(p).clone() for n, p in params.items()}
+    loss = step(x, y)
+    return float(loss), {n: whole(p) - old[n] for n, p in params.items()}
+
+
+def flat(update: dict, names=None) -> torch.Tensor:
+    return torch.cat([update[n].double().flatten()
+                      for n in sorted(names or update)])
+
+
+def train_phase(name: str) -> dict:
+    case = CASES["1.2"]
+    model = build_model(case, torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    _, ms, host_ms, img_s = run_case(case, model, STEPS["1.2"])
+    peak_alloc = torch.cuda.max_memory_allocated()
+    peak_reserved = torch.cuda.max_memory_reserved()
+    del model
+    torch.cuda.empty_cache()
+
+    # one step from the same weights and batch: bf16 and f32 (TF32 off) on
+    # the card, and f32 on the host CPU as an independent implementation
+    x, y = make_batch(case, 0)
+    model = build_model(case, torch.bfloat16)
+    with NoTF32():
+        ref_model = get_model(case.model, num_classes=case.classes,
+                              dtype=torch.float32, device="cuda").to(
+            memory_format=torch.channels_last)
+        ref_model.load_state_dict(model.state_dict())
+        ref_loss, ref_up = one_step(ref_model,
+                                    dict(ref_model.named_parameters()),
+                                    make_train_step(ref_model)[0], x, y)
+    del ref_model
+    cpu_model = get_model(case.model, num_classes=case.classes,
+                          dtype=torch.float32, device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    t0 = time.perf_counter()
+    cpu_loss, cpu_up = one_step(cpu_model, dict(cpu_model.named_parameters()),
+                                make_train_step(cpu_model)[0], x.cpu(),
+                                y.cpu())
+    cpu_s = time.perf_counter() - t0
+    del cpu_model
+    loss, up = one_step(model, dict(model.named_parameters()),
+                        make_train_step(model)[0], x, y)
+    del model
+    torch.cuda.empty_cache()
+    cpu_up = {n: u.cuda() for n, u in cpu_up.items()}
+    f32_loss_rel = abs(ref_loss - cpu_loss) / abs(cpu_loss)
+    f32_up_rel = rel_l2(flat(ref_up), flat(cpu_up))
+    loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+    head = ["head.weight", "head.bias"]
+    head_rel = rel_l2(flat(up, head), flat(ref_up, head))
+    whole_rel = rel_l2(flat(up), flat(ref_up))
+    print(f"case 1.2 native: ResNet-V2-50 training bf16 batch {case.batch} "
+          f"{case.shape[0]}x{case.shape[1]}, SGD momentum 0.9: {ms:.3f} "
+          f"ms/step (CUDA events, {STEPS['1.2']} steps), host "
+          f"{host_ms:.3f} ms/step, {img_s:.1f} img/s; "
+          f"max_memory_allocated {peak_alloc} B, max_memory_reserved "
+          f"{peak_reserved} B; on {name}", flush=True)
+    print(f"case 1.2 one step, same weights and batch: f32 on the card (TF32 "
+          f"off) vs f32 on the host CPU ({cpu_s:.1f} s): loss {ref_loss:.6f} "
+          f"vs {cpu_loss:.6f} (rel {f32_loss_rel:.3e}), update rel L2 "
+          f"{f32_up_rel:.3e}; bf16 vs f32 on the card: loss {loss:.6f} (rel "
+          f"{loss_rel:.3e}), head update rel L2 {head_rel:.3e}, whole-model "
+          f"update rel L2 {whole_rel:.3e}; on {name}", flush=True)
+    check(all(bool(torch.isfinite(u).all()) for u in up.values()),
+          "non-finite parameter update")
+    check(f32_loss_rel <= F32_REL, f"f32 card vs CPU loss rel "
+          f"{f32_loss_rel} > {F32_REL}")
+    check(f32_up_rel <= BF16_REL, f"f32 card vs CPU update rel L2 "
+          f"{f32_up_rel} > {BF16_REL}")
+    check(loss_rel <= BF16_REL, f"bf16 vs f32 loss rel {loss_rel}")
+    return {"phase": "case 1.2 native", "step_ms": ms,
+            "host_step_ms": host_ms, "img_s": img_s,
+            "peak_allocated_bytes": peak_alloc,
+            "peak_reserved_bytes": peak_reserved,
+            "f32_card_vs_cpu_loss_rel": f32_loss_rel,
+            "f32_card_vs_cpu_update_rel_l2": f32_up_rel,
+            "loss_rel_bf16_vs_f32": loss_rel,
+            "head_update_rel_l2_bf16_vs_f32": head_rel,
+            "update_rel_l2_bf16_vs_f32": whole_rel}
+
+
+def sharded_phase(name: str) -> dict:
+    """The sharded step on a 1x1 mesh (NCCL, one rank) against the plain
+    step from the same weights and batch, in bf16 and in f32 (TF32 off),
+    then dryrun_multichip(1). The f32 pair is held to the f32 tolerance
+    of the loss and to 5e-2 on the whole update; the bf16 pair's loss to
+    5e-2, its update printed (bf16 rounding, PERF.md)."""
+    import torch.distributed as dist
+
+    import vtpu_torch
+
+    case = CASES["1.2"]
+    x, y = make_batch(case, 0)
+    dtypes = {"bf16": (torch.bfloat16, contextlib.nullcontext),
+              "f32": (torch.float32, NoTF32)}
+    plain, sharded = {}, {}
+    for kind, (dtype, mode) in dtypes.items():
+        with mode():
+            model = build_model(case, dtype)
+            plain[kind] = one_step(model, dict(model.named_parameters()),
+                                   make_train_step(model)[0], x, y)
+        del model
+    tmp = tempfile.mkdtemp(prefix="vgpu-smoke-pg-")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/pg",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh("cuda", dp=1, tp=1)
+        for kind, (dtype, mode) in dtypes.items():
+            with mode():
+                model = get_model(case.model, num_classes=case.classes,
+                                  dtype=dtype, device="cuda").to(
+                    memory_format=torch.channels_last)
+                step, (params, _, _) = build_sharded_train_step(
+                    model, x, y, mesh, torch.Generator().manual_seed(1))
+                sharded[kind] = one_step(model, params, step, x, y)
+            del model, params, step
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    result = {"phase": "case 1.2 sharded 1x1"}
+    for kind in dtypes:
+        (s_loss, s_up), (loss, up) = sharded[kind], plain[kind]
+        result[f"{kind}_loss_rel_vs_plain"] = abs(s_loss - loss) / abs(loss)
+        result[f"{kind}_update_rel_l2_vs_plain"] = rel_l2(flat(s_up),
+                                                          flat(up))
+        print(f"case 1.2 sharded {kind}, 1x1 mesh over NCCL: loss "
+              f"{s_loss:.6f} vs plain {loss:.6f} (rel "
+              f"{result[f'{kind}_loss_rel_vs_plain']:.3e}), update rel L2 "
+              f"{result[f'{kind}_update_rel_l2_vs_plain']:.3e}; on {name}",
+              flush=True)
+    t0 = time.perf_counter()
+    vtpu_torch.dryrun_multichip(1)
+    result["dryrun_multichip_1_s"] = time.perf_counter() - t0
+    print(f"dryrun_multichip(1) passed in "
+          f"{result['dryrun_multichip_1_s']:.1f} s; on {name}", flush=True)
+    check(result["f32_loss_rel_vs_plain"] <= F32_REL,
+          f"sharded vs plain f32 loss rel {result['f32_loss_rel_vs_plain']}")
+    check(result["f32_update_rel_l2_vs_plain"] <= BF16_REL,
+          f"sharded vs plain f32 update rel L2 "
+          f"{result['f32_update_rel_l2_vs_plain']}")
+    check(result["bf16_loss_rel_vs_plain"] <= BF16_REL,
+          f"sharded vs plain bf16 loss rel {result['bf16_loss_rel_vs_plain']}")
+    return result
+
+
+def quota_child(case_name: str, quota: int) -> None:
     """Runs in the child under LD_PRELOAD=libvgpu.so."""
+    case = CASES[case_name]
     enf = install()
     check(enf.interposed, "libvgpu.so is not active in the child")
-    check(enf.limit() == QUOTA, f"quota {enf.limit()}")
-    model, x = build_case(torch.bfloat16)
-    out, ms, host_ms = time_steps(make_infer_step(model), x)
-    check_logits(out)
+    check(enf.limit() == quota, f"quota {enf.limit()} != {quota}")
+    model = build_model(case, torch.bfloat16)
+    out, ms, host_ms, img_s = run_case(case, model, STEPS[case_name])
     free, total = torch.cuda.mem_get_info()
     used = enf.used()
     reserved = torch.cuda.memory_reserved()
-    check(total == QUOTA, f"mem_get_info total {total} != quota {QUOTA}")
-    check(free == QUOTA - used, f"mem_get_info free {free} != quota - "
-          f"region used {QUOTA - used}")
+    check(total == quota, f"mem_get_info total {total} != quota {quota}")
+    check(free == quota - used, f"mem_get_info free {free} != quota - "
+          f"region used {quota - used}")
     check(0 <= used - reserved <= RESERVED_MARGIN,
           f"region used {used} vs memory_reserved {reserved}: gap "
           f"{used - reserved} B outside [0, {RESERVED_MARGIN}]")
     try:
-        torch.empty(QUOTA, dtype=torch.uint8, device="cuda")
+        torch.empty(quota, dtype=torch.uint8, device="cuda")
         raise SmokeFailure("an allocation past the quota succeeded")
     except torch.OutOfMemoryError:
         pass
-    after = make_infer_step(model)(x)
+    after, _, _, _ = run_case(case, model, 1)
     torch.cuda.synchronize()
-    check_logits(after)
-    drift = float((after - out).norm() / out.norm())
-    check(drift <= BF16_REL_L2, f"logits moved by {drift} after the refusal")
+    if case.mode == "inference":
+        drift = rel_l2(after, out)
+        check(drift <= BF16_REL, f"logits moved by {drift} after the "
+              f"refusal")
     print(json.dumps({"pid": os.getpid(), "step_ms": ms,
-                      "host_step_ms": host_ms,
-                      "img_s": CASE.batch / (ms / 1e3),
+                      "host_step_ms": host_ms, "img_s": img_s,
+                      "loss_after_refusal": float(after)
+                      if case.mode == "training" else None,
                       "region_used": enf.used(),
                       "reserved_at_check": reserved,
                       "used_at_check": used,
-                      "memory_reserved": torch.cuda.memory_reserved()}),
+                      "memory_reserved": torch.cuda.memory_reserved(),
+                      "max_memory_reserved": torch.cuda.max_memory_reserved(),
+                      "max_memory_allocated":
+                          torch.cuda.max_memory_allocated()}),
           flush=True)
     sys.stdin.readline()  # the parent reads the region meanwhile
 
 
-def child_env(alloc_conf: str):
+def peak_child(case_name: str) -> None:
+    """Runs in a child, alone, under the allocator its env names: the
+    case's steps, then its peak reserved memory as one JSON line."""
+    case = CASES[case_name]
+    run_case(case, build_model(case, torch.bfloat16), STEPS[case_name])
+    print(json.dumps({"max_memory_reserved":
+                      torch.cuda.max_memory_reserved()}), flush=True)
+
+
+def alone_peak(case_name: str, alloc_conf: str) -> int:
+    """``case_name``'s peak ``max_memory_reserved()`` under ``alloc_conf``
+    (PYTORCH_CUDA_ALLOC_CONF), from a child without the interposer."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("CUDA_DEVICE_", "CUDA_DISABLE", "LD_PRELOAD",
+                                "PYTORCH_CUDA_ALLOC_CONF"))}
+    env.update({"PYTHONPATH": ROOT, "PYTORCH_CUDA_ALLOC_CONF": alloc_conf})
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--peak-child",
+         case_name], env=env, capture_output=True, text=True,
+        timeout=CHILD_TIMEOUT_S)
+    check(proc.returncode == 0, f"case {case_name} peak child "
+          f"({alloc_conf}) rc {proc.returncode}:\n{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])[
+        "max_memory_reserved"]
+
+
+def child_env(alloc_conf: str, quota: int):
     """(temp dir, region file, env) for a quota child: libvgpu.so
-    preloaded, the 12 GiB quota, its own region file under
+    preloaded, ``quota`` bytes, its own region file under
     .../containers/<pod uid>_0/, and ``alloc_conf`` as
     PYTORCH_CUDA_ALLOC_CONF ("" = PyTorch's default allocator)."""
     tmp = tempfile.mkdtemp(prefix="vgpu-smoke-")
@@ -218,7 +475,7 @@ def child_env(alloc_conf: str):
                                 "PYTORCH_CUDA_ALLOC_CONF"))}
     env.update({
         "LD_PRELOAD": native.interposer(),
-        "CUDA_DEVICE_MEMORY_LIMIT": QUOTA_ENV,
+        "CUDA_DEVICE_MEMORY_LIMIT": str(quota),
         "CUDA_DEVICE_MEMORY_SHARED_CACHE": cache,
         "PYTHONPATH": ROOT,
     })
@@ -233,13 +490,16 @@ def check_clean(cache: str) -> None:
               "region not clean after the child exited")
 
 
-def quota_phase(name: str, alloc_conf: str) -> dict:
+def quota_phase(name: str, case_name: str, quota: int,
+                alloc_conf: str) -> dict:
     label = alloc_conf or "default allocator"
-    tmp, cache, env = child_env(alloc_conf)
+    tmp, cache, env = child_env(alloc_conf, quota)
+    env["LIBCUDA_LOG_LEVEL"] = "3"
     free0, _ = torch.cuda.mem_get_info()
     errf = open(os.path.join(tmp, "child.err"), "w+")
     proc = subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--quota-child"],
+        [sys.executable, os.path.abspath(__file__), "--quota-child",
+         case_name, str(quota)],
         env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=errf,
         text=True)
     try:
@@ -249,8 +509,9 @@ def quota_phase(name: str, alloc_conf: str) -> dict:
             proc.kill()
             proc.wait(timeout=60)
             errf.seek(0)
-            raise SmokeFailure(f"quota child ({label}) failed, rc "
-                               f"{proc.returncode}:\n{errf.read()[-4000:]}")
+            raise SmokeFailure(f"case {case_name} quota child ({label}) "
+                               f"failed, rc {proc.returncode}:\n"
+                               f"{errf.read()[-4000:]}")
         report = json.loads(line)
         free1, _ = torch.cuda.mem_get_info()
         footprint = free0 - free1  # the child's real device memory
@@ -258,15 +519,16 @@ def quota_phase(name: str, alloc_conf: str) -> dict:
             pids = [p.pid for p in view.procs()]
             check(pids == [proc.pid], f"region slots {pids}, child "
                   f"{proc.pid}")
-            check(view.hbm_limit(0) == QUOTA, "region limit")
+            check(view.hbm_limit(0) == quota, "region limit")
             region_used = view.used(0)
             check(region_used == report["region_used"],
                   f"monitor reads {region_used} B, child charged "
                   f"{report['region_used']} B")
         proc.communicate("exit\n", timeout=CHILD_TIMEOUT_S)
         errf.seek(0)
+        err = errf.read()
         check(proc.returncode == 0,
-              f"quota child rc {proc.returncode}:\n{errf.read()[-4000:]}")
+              f"quota child rc {proc.returncode}:\n{err[-4000:]}")
         check_clean(cache)
     finally:
         if proc.poll() is None:
@@ -274,36 +536,19 @@ def quota_phase(name: str, alloc_conf: str) -> dict:
             proc.wait(timeout=60)
         errf.close()
         shutil.rmtree(tmp, ignore_errors=True)
-    result = dict(report, phase=f"quota ({label})",
-                  device_footprint_bytes=footprint,
-                  unaccounted_bytes=footprint - region_used)
-    print(f"case 1.1 under libvgpu.so, {QUOTA_ENV} quota, {label}: "
+    result = dict(report, phase=f"case {case_name} quota ({label})",
+                  quota_bytes=quota, device_footprint_bytes=footprint,
+                  unaccounted_bytes=footprint - region_used,
+                  pool_trims=err.count(TRIM_LOG))
+    print(f"case {case_name} under libvgpu.so, {quota} B quota, {label}: "
           f"{report['step_ms']:.3f} ms/step (CUDA events), "
           f"{report['img_s']:.1f} img/s; region charge {region_used} B vs "
-          f"memory_reserved {report['memory_reserved']} B; child device "
-          f"footprint {footprint} B, of it not charged "
-          f"{footprint - region_used} B; on {name}", flush=True)
+          f"memory_reserved {report['memory_reserved']} B (at the check: "
+          f"{report['used_at_check']} vs {report['reserved_at_check']}); "
+          f"child device footprint {footprint} B, of it not charged "
+          f"{footprint - region_used} B; {result['pool_trims']} pool trims "
+          f"at the quota; on {name}", flush=True)
     return result
-
-
-def async_refusal_phase() -> None:
-    """The stream-ordered allocator is not enforced yet: a child that
-    selects it must stop at its first pool allocation (exit 78) instead of
-    running unenforced, and leave the region clean."""
-    tmp, cache, env = child_env("backend:cudaMallocAsync")
-    try:
-        proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--quota-child"],
-            env=env, stdin=subprocess.DEVNULL, capture_output=True,
-            text=True, timeout=CHILD_TIMEOUT_S)
-        check(proc.returncode == 78 and "cudaMallocAsync" in proc.stderr,
-              f"cudaMallocAsync child rc {proc.returncode}, expected 78:\n"
-              f"{proc.stderr[-4000:]}")
-        check_clean(cache)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    print("backend:cudaMallocAsync under libvgpu.so: refused at the first "
-          "pool allocation (exit 78), region clean", flush=True)
 
 
 NATIVE = [
@@ -312,7 +557,10 @@ NATIVE = [
      "hooks": ["dlsym", "cuGetProcAddress", "cuGetProcAddress_v2",
                "cuMemAlloc_v2", "cuMemAllocPitch_v2", "cuMemFree_v2",
                "cuMemCreate", "cuMemRelease", "cuMemGetInfo_v2",
-               "cuMemAllocAsync", "cuMemAllocFromPoolAsync"]},
+               "cuMemAllocAsync", "cuMemAllocAsync_ptsz",
+               "cuMemAllocFromPoolAsync", "cuMemAllocFromPoolAsync_ptsz",
+               "cuMemFreeAsync", "cuMemFreeAsync_ptsz", "cuMemPoolTrimTo",
+               "cuMemPoolDestroy"]},
     {"name": "libvgpucore.so", "route": "gcc", "source":
      "vtpu_torch/csrc/shared_region.c", "replaces":
      "lib/vtpu/shared_region.c:476"},
@@ -321,7 +569,10 @@ NATIVE = [
 
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--quota-child":
-        quota_child()
+        quota_child(sys.argv[2], int(sys.argv[3]))
+        return 0
+    if len(sys.argv) > 1 and sys.argv[1] == "--peak-child":
+        peak_child(sys.argv[2])
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -338,10 +589,18 @@ def main() -> int:
     libs = native.build_all()
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.2f} s",
           flush=True)
-    phases = [model_phase(name)]
-    for alloc_conf in ("", "expandable_segments:True"):
-        phases.append(quota_phase(name, alloc_conf))
-    async_refusal_phase()
+    phases = [infer_phase(name), train_phase(name), sharded_phase(name)]
+    for alloc_conf in ALLOCATORS:
+        phases.append(quota_phase(name, "1.1", INFER_QUOTA, alloc_conf))
+    for alloc_conf in ALLOCATORS:
+        peak = phases[1]["peak_reserved_bytes"] if not alloc_conf \
+            else alone_peak("1.2", alloc_conf)
+        quota = math.ceil(peak * (1 + TRAIN_HEADROOM) / GiB) * GiB
+        print(f"case 1.2 quota, {alloc_conf or 'default allocator'}: "
+              f"max_memory_reserved alone {peak} B + {TRAIN_HEADROOM:.0%}, "
+              f"rounded up to whole GiB: {quota} B", flush=True)
+        phases.append(dict(quota_phase(name, "1.2", quota, alloc_conf),
+                           max_memory_reserved_alone=peak))
     print(json.dumps({"card": name, "phases": phases}), flush=True)
     print(json.dumps({"kernels": [], "native": NATIVE}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,7 @@ from vtpu_torch.enforce.region import RegionView
 
 MiB = 1 << 20
 LIMIT = 64 * MiB
+CHUNK = 32 * MiB  # the mock pools' reservation granularity
 PITCH_BYTES = 1024 * 1000  # 1000 rows of 1000 B, pitch rounded to 512
 
 CHILD = textwrap.dedent(r"""
@@ -85,9 +86,12 @@ CHILD = textwrap.dedent(r"""
     out = {"hooked": {name: vg is not None and fns[name] == addr(
         getattr(vg, exact)) for name, _, exact, _ in ENTRIES}}
     if mode == "async":
-        a = c_ulonglong()
-        ASYNC(via2("cuMemAllocAsync", 12000, 2))(byref(a), 4096, None)
-        sys.exit(0)  # unreachable under enforcement
+        a, f, t = c_ulonglong(), c_size_t(), c_size_t()
+        rc = ASYNC(via2("cuMemAllocAsync", 12000, 2))(byref(a), 4096, None)
+        INFO(resolve("cuMemGetInfo", "cuMemGetInfo_v2", 3020))(byref(f),
+                                                              byref(t))
+        print(json.dumps([rc, f.value, t.value]), flush=True)
+        sys.exit(0)
 
     alloc, free, info = ALLOC(fns["alloc"]), FREE(fns["free"]), \
         INFO(fns["info"])
@@ -273,10 +277,14 @@ def test_disable_control_passes_through(tmp_path, libs):
 
 def test_stream_ordered_allocator_exits_instead_of_running_unenforced(
         tmp_path, libs):
+    """The child that selects the stream-ordered allocator no longer has to
+    stop (the interposer used to exit it with code 78): its pool
+    allocation runs enforced, charged at the pool's reservation (one
+    32 MiB chunk of the mock's pool for 4 KiB), and it exits normally."""
     env, _ = child_env(tmp_path)
     proc = run_child(env, "async")
-    assert proc.returncode == 78, proc.stderr
-    assert "cudaMallocAsync" in proc.stderr
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout) == [0, LIMIT - CHUNK, LIMIT]
 
 
 def test_dlsym_rtld_next_still_finds_the_next_object(tmp_path, libs):
@@ -306,3 +314,193 @@ def test_dlsym_rtld_next_still_finds_the_next_object(tmp_path, libs):
     proc = subprocess.run([sys.executable, "-c", script], env=env,
                           capture_output=True, text=True, timeout=60)
     assert proc.returncode == 0, proc.stderr
+
+
+POOL_CHILD = textwrap.dedent(r"""
+    import ctypes, json, os, sys, threading
+    from ctypes import (CFUNCTYPE, POINTER, byref, c_char_p, c_int,
+                        c_size_t, c_uint64, c_ulonglong, c_void_p)
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    vg = ctypes.CDLL(os.environ["LD_PRELOAD"])
+    cu.mock_cuda_pool_allocs.restype = ctypes.c_ulong
+    u64p = POINTER(c_ulonglong)
+    GPA2 = CFUNCTYPE(c_int, c_char_p, POINTER(c_void_p), c_int, c_uint64,
+                     POINTER(c_int))
+    gpa2 = GPA2(ctypes.cast(cu.cuGetProcAddress_v2, c_void_p).value)
+
+    def via2(base, flags=0):
+        p, st = c_void_p(), c_int(-1)
+        rc = gpa2(base.encode(), byref(p), 12080, flags, byref(st))
+        assert rc == 0 and st.value == 0, (base, rc, st.value)
+        return p.value
+
+    def addr(f):
+        return ctypes.cast(f, c_void_p).value
+
+    class Loc(ctypes.Structure):
+        _fields_ = [("type", c_int), ("id", c_int)]
+
+    class PoolProps(ctypes.Structure):
+        _fields_ = [("alloc_type", c_int), ("handle_types", c_int),
+                    ("location", Loc), ("win32", c_void_p),
+                    ("max_size", c_size_t), ("usage", ctypes.c_ushort),
+                    ("reserved", ctypes.c_ubyte * 54)]
+
+    # (base name, cuGetProcAddress flags, the interposer's export)
+    HOOKS = [("cuMemAllocAsync", 0, "cuMemAllocAsync"),
+             ("cuMemAllocAsync", 2, "cuMemAllocAsync_ptsz"),
+             ("cuMemAllocFromPoolAsync", 0, "cuMemAllocFromPoolAsync"),
+             ("cuMemAllocFromPoolAsync", 2, "cuMemAllocFromPoolAsync_ptsz"),
+             ("cuMemFreeAsync", 0, "cuMemFreeAsync"),
+             ("cuMemFreeAsync", 2, "cuMemFreeAsync_ptsz"),
+             ("cuMemPoolTrimTo", 0, "cuMemPoolTrimTo"),
+             ("cuMemPoolDestroy", 0, "cuMemPoolDestroy")]
+    out = {"hooked": {f"{base}/{flags}": via2(base, flags) == addr(
+        getattr(vg, exact)) for base, flags, exact in HOOKS}}
+    alloc = CFUNCTYPE(c_int, u64p, c_size_t, c_void_p)(
+        via2("cuMemAllocAsync", 2))
+    from_pool = CFUNCTYPE(c_int, u64p, c_size_t, c_void_p, c_void_p)(
+        via2("cuMemAllocFromPoolAsync"))
+    free = CFUNCTYPE(c_int, c_ulonglong, c_void_p)(via2("cuMemFreeAsync", 2))
+    trim = CFUNCTYPE(c_int, c_void_p, c_size_t)(via2("cuMemPoolTrimTo"))
+    sync = CFUNCTYPE(c_int, c_void_p)(via2("cuStreamSynchronize"))
+    destroy = CFUNCTYPE(c_int, c_void_p)(via2("cuMemPoolDestroy"))
+    create = CFUNCTYPE(c_int, POINTER(c_void_p), POINTER(PoolProps))(
+        via2("cuMemPoolCreate"))
+    dev_pool = CFUNCTYPE(c_int, POINTER(c_void_p), c_int)(
+        via2("cuDeviceGetMemPool"))
+    info = CFUNCTYPE(c_int, POINTER(c_size_t), POINTER(c_size_t))(
+        via2("cuMemGetInfo"))
+    mem_alloc = CFUNCTYPE(c_int, u64p, c_size_t)(via2("cuMemAlloc"))
+    mem_free = CFUNCTYPE(c_int, c_ulonglong)(via2("cuMemFree"))
+
+    def used():
+        f, t = c_size_t(), c_size_t()
+        assert info(byref(f), byref(t)) == 0
+        return t.value - f.value
+
+    MiB = 1 << 20
+    pool = c_void_p()
+    assert dev_pool(byref(pool), 0) == 0
+    a, b, c, d = (c_ulonglong() for _ in range(4))
+    out["used0"] = used()
+    out["alloc_a"] = [alloc(byref(a), 1 * MiB, None), used()]
+    out["alloc_b"] = [alloc(byref(b), 2 * MiB, None), used()]
+    out["free_ab"] = [free(a.value, None), free(b.value, None), used()]
+    # the frees are pending until a synchronisation: nothing to trim before
+    out["trim"] = [trim(pool, 0), used(), sync(None), trim(pool, 0), used()]
+    calls = cu.mock_cuda_pool_allocs()
+    out["over"] = [alloc(byref(c), 64 * MiB + 1, None), used(),
+                   cu.mock_cuda_pool_allocs() - calls]
+    # 24 MiB held outside the pool: a 33 MiB request passes the check before
+    # the call, but the pool grows by two chunks, which the quota refuses
+    assert mem_alloc(byref(d), 24 * MiB) == 0
+    calls = cu.mock_cuda_pool_allocs()
+    out["growth_refused"] = [alloc(byref(c), 33 * MiB, None), c.value,
+                             used(), cu.mock_cuda_pool_allocs() - calls]
+    assert mem_free(d.value) == 0
+
+    # 40 MiB freed: the pool reserves 64 MiB and uses none. A 20 MiB request
+    # passes the quota on its size alone, but the pool serves it from what
+    # it reserves: no growth, and no synchronisation and trim to make room
+    # (which would leave one chunk charged, not two)
+    assert alloc(byref(c), 40 * MiB, None) == 0 and free(c.value, None) == 0
+    calls = cu.mock_cuda_pool_allocs()
+    out["spare"] = [alloc(byref(c), 20 * MiB, None), used(),
+                    cu.mock_cuda_pool_allocs() - calls]
+    assert free(c.value, None) == 0
+    # 60 MiB freed, pending: for 40 MiB more the pool grows by two chunks
+    # past the quota; synchronised and trimmed, it fits, and the allocation
+    # stays
+    c.value = 0
+    out["reclaimed"] = [alloc(byref(c), 40 * MiB, None), c.value != 0,
+                        used()]
+    assert free(c.value, None) == 0 and sync(None) == 0
+    out["spare_trim"] = [trim(pool, 0), used()]
+
+    # two threads allocating 20 MiB each from one pool at once: the pool
+    # grows by two chunks, and the charge is two chunks, not one or three
+    rounds, bad = 200, []
+    ptrs = [c_ulonglong(), c_ulonglong()]
+    for _ in range(rounds):
+        gate = threading.Barrier(2)
+
+        def one(i):
+            gate.wait()
+            assert alloc(byref(ptrs[i]), 20 * MiB, None) == 0
+
+        ts = [threading.Thread(target=one, args=(i,)) for i in range(2)]
+        [t.start() for t in ts]
+        [t.join(timeout=30) for t in ts]
+        assert not any(t.is_alive() for t in ts)
+        if used() != 64 * MiB:
+            bad.append(used())
+        assert free(ptrs[0].value, None) == 0
+        assert free(ptrs[1].value, None) == 0
+        assert sync(None) == 0 and trim(pool, 0) == 0
+    out["threads"] = [rounds, bad, used()]
+
+    props = PoolProps()
+    props.alloc_type, props.location.type, props.location.id = 1, 1, 0
+    own = c_void_p()
+    assert create(byref(own), byref(props)) == 0
+    out["own_pool"] = [from_pool(byref(a), 1 * MiB, own, None), used()]
+    out["destroy"] = [destroy(own), used()]
+    print(json.dumps(out), flush=True)
+""")
+
+
+def test_pool_allocations_are_charged_at_the_pools_reservation(tmp_path,
+                                                               libs):
+    """The stream-ordered allocator, enforced on the mock's chunked pools,
+    every hook reached through cuGetProcAddress: an allocation charges the
+    chunk its pool reserves, not the request; a second one inside the chunk
+    charges nothing; a free leaves the charge while the pool holds the
+    memory; a trim returns it. A request past the quota is refused before
+    the driver's allocator is called. When the pool's growth is what the
+    quota refuses, the allocation is freed and the pool trimmed back. A
+    request that fits in what the pool reserves and does not use is served
+    near the quota; a growth refused while freed memory is pending is
+    retried after the stream is synchronised and the pool trimmed. Two
+    threads growing one pool charge the growth once; a pool of the
+    process's own is charged and, destroyed, uncharged."""
+    env, cache = child_env(tmp_path)
+    proc = subprocess.run([sys.executable, "-c", POOL_CHILD], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout)
+    assert all(out["hooked"].values()), out["hooked"]
+    assert out["used0"] == 0
+    assert out["alloc_a"] == [0, CHUNK]
+    assert out["alloc_b"] == [0, CHUNK]
+    assert out["free_ab"] == [0, 0, CHUNK]
+    assert out["trim"] == [0, CHUNK, 0, 0, 0]
+    assert out["over"] == [2, 0, 0]  # CUDA_ERROR_OUT_OF_MEMORY, mock untouched
+    assert out["growth_refused"] == [2, 0, 24 * MiB, 1]
+    assert out["spare"] == [0, 2 * CHUNK, 1]
+    assert out["reclaimed"] == [0, True, 2 * CHUNK]
+    assert out["spare_trim"] == [0, 0]
+    assert out["threads"] == [200, [], 0]
+    assert out["own_pool"] == [0, CHUNK]
+    assert out["destroy"] == [0, 0]
+    with RegionView(cache) as view:
+        assert view.procs() == [] and view.used(0) == 0
+
+
+def test_pool_hooks_pass_through_with_control_disabled(tmp_path, libs):
+    """CUDA_DISABLE_CONTROL: no pool hook is handed out, nothing is charged
+    and the quota does not apply (the mock's own 1 GiB does)."""
+    env, cache = child_env(tmp_path, **{api.ENV_DISABLE_CONTROL: "1"})
+    script = POOL_CHILD.split("\nMiB = 1 << 20\n")[0] + textwrap.dedent("""
+        c = c_ulonglong()
+        out["over"] = alloc(byref(c), 65 << 20, None)
+        print(json.dumps(out), flush=True)
+    """)
+    proc = subprocess.run([sys.executable, "-c", script], env=env,
+                          capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout)
+    assert not any(out["hooked"].values()), out["hooked"]
+    assert out["over"] == 0
+    assert not os.path.exists(cache)

@@ -9,11 +9,17 @@ same architecture: module paths join with ".", and each leaf maps by name:
 - Dense ``kernel`` [in, out] -> ``weight`` [out, in]; ``bias`` -> ``bias``;
 - BatchNorm ``scale`` -> ``weight``, ``bias`` -> ``bias``, and from
   ``batch_stats`` ``mean`` -> ``running_mean``, ``var`` -> ``running_var``.
+
+``momentum_from_optax(opt_state, model)`` carries the momentum of
+``optax.sgd(lr, momentum)`` (the ``trace`` of its TraceState, a tree shaped
+like the parameters) across with the same map, and
+``momentum_to_optax(optimizer, model)`` takes a torch optimizer's momentum
+buffers the other way, into a trace tree of numpy arrays in flax's layout.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -60,3 +66,62 @@ def from_flax(params: Mapping, batch_stats: Mapping) -> Dict[str,
     _walk(params, "", _param, out)
     _walk(batch_stats or {}, "", _stat, out)
     return out
+
+
+def _trace_of(opt_state) -> Any:
+    """The ``trace`` tree inside an optax state (TraceState, alone or in the
+    tuple of a chain), or None."""
+    if hasattr(opt_state, "trace"):
+        return opt_state.trace
+    if isinstance(opt_state, (tuple, list)):
+        for sub in opt_state:
+            trace = _trace_of(sub)
+            if trace is not None:
+                return trace
+    return None
+
+
+def momentum_from_optax(opt_state, model: torch.nn.Module) -> Dict[
+        str, torch.Tensor]:
+    """Momentum of an ``optax.sgd(..., momentum=m)`` state by the port
+    model's parameter names, in torch's layout."""
+    trace = _trace_of(opt_state)
+    if trace is None:
+        raise ValueError("the optax state holds no momentum trace")
+    out: Dict[str, torch.Tensor] = {}
+    _walk(trace, "", _param, out)
+    names = {name for name, _ in model.named_parameters()}
+    if set(out) != names:
+        raise ValueError(f"trace leaves {sorted(set(out) ^ names)} do not "
+                         f"match the model's parameters")
+    return out
+
+
+def _flax_leaf(name: str, arr: np.ndarray):
+    """(flax leaf name, array in flax's layout) of a torch parameter."""
+    if name == "bias":
+        return "bias", arr
+    if name != "weight":
+        raise ValueError(f"{name}: unknown torch parameter")
+    if arr.ndim == 4:
+        return "kernel", arr.transpose(2, 3, 1, 0)
+    if arr.ndim == 2:
+        return "kernel", arr.T
+    return "scale", arr
+
+
+def momentum_to_optax(optimizer: torch.optim.Optimizer,
+                      model: torch.nn.Module) -> Dict[str, Any]:
+    """The optimizer's momentum buffers as a flax-layout trace tree of numpy
+    arrays (zeros where a buffer is not made yet, as optax's init)."""
+    tree: Dict[str, Any] = {}
+    for name, p in model.named_parameters():
+        buf = optimizer.state.get(p, {}).get("momentum_buffer")
+        buf = torch.zeros_like(p) if buf is None else buf
+        *path, leaf = name.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        key, arr = _flax_leaf(leaf, buf.detach().float().cpu().numpy())
+        node[key] = np.ascontiguousarray(arr)
+    return tree
