@@ -7,6 +7,7 @@ channels_last; the models and inputs of chip_smoke.py).
     python3 chip_profile.py [--case 1.1|1.2] [--steps N]
     python3 chip_profile.py --case 1.2 --allocators [--quota GIB]
         [--allocator default|expandable|async ...]
+    python3 chip_profile.py --case 1.1 --sm-limit PCT
 
 Traces N steady-state steps with torch.profiler and prints: the card
 (nvidia-smi name and power limit), the step's wall time, the summed
@@ -23,8 +24,13 @@ interposer trimmed a memory pool at the quota; then the medians. The quota
 is the size of the card unless ``--quota`` sets it, so by default only the
 hooks' cost is measured; near the case's peak it measures the enforcement
 at work. A child that fails (out of memory under a tight quota) is
-reported and the run goes on, then exits non-zero. Exits non-zero without
-a GPU.
+reported and the run goes on, then exits non-zero.
+
+With ``--sm-limit PCT`` it times the case in child processes alone and under
+``LD_PRELOAD=libvgpu.so`` with ``CUDA_DEVICE_SM_LIMIT=PCT``, in the order
+alone, limited, limited, alone, 200 steps each, and prints each child's
+ms/step (CUDA events around the timed steps, so the throttle's waits count)
+and the medians' ratio. Exits non-zero without a GPU.
 """
 
 from __future__ import annotations
@@ -47,16 +53,19 @@ from vtpu_torch.enforce import install
 from vtpu_torch.models.train import make_infer_step, make_train_step
 
 CARD_QUOTA = 80 << 30
+# --sm-limit: enough steps that the bucket's burst (200 ms x the limit)
+# is a small part of the timed window (~5 s of case 1.1 alone)
+SM_LIMIT_STEPS = 200
 ALLOCATOR_NAMES = dict(zip(("default", "expandable", "async"), ALLOCATORS))
 
 
-def time_child(case_name: str) -> None:
+def time_child(case_name: str, steps: int) -> None:
     """Runs in a child: the case's timed steps, as one JSON line."""
     interposed = install().interposed if "LD_PRELOAD" in os.environ \
         else False
     case = CASES[case_name]
     _, ms, _, img_s = run_case(case, build_model(case, torch.bfloat16),
-                               STEPS[case_name])
+                               steps)
     print(json.dumps({"ms": ms, "img_s": img_s, "interposed": interposed,
                       "max_reserved": torch.cuda.max_memory_reserved(),
                       "max_allocated": torch.cuda.max_memory_allocated()}),
@@ -82,8 +91,8 @@ def compare_allocators(name: str, case_name: str, quota: int,
             try:
                 proc = subprocess.run(
                     [sys.executable, os.path.abspath(__file__),
-                     "--time-child", case_name], env=env, text=True,
-                    capture_output=True, timeout=600)
+                     "--time-child", case_name, str(STEPS[case_name])],
+                    env=env, text=True, capture_output=True, timeout=600)
             finally:
                 shutil.rmtree(tmp, ignore_errors=True)
             trims = proc.stderr.count(TRIM_LOG)
@@ -119,6 +128,40 @@ def compare_allocators(name: str, case_name: str, quota: int,
     return 1 if failed else 0
 
 
+def compare_sm_limit(name: str, case_name: str, limit: int) -> int:
+    print(f"card: {name}; torch {torch.__version__}; case {case_name}, "
+          f"{SM_LIMIT_STEPS} timed steps per child; SM limit {limit}%")
+    times = {False: [], True: []}
+    for limited in (False, True, True, False):
+        tmp, _, env = child_env("", CARD_QUOTA)
+        if limited:
+            env["CUDA_DEVICE_SM_LIMIT"] = str(limit)
+        else:
+            env = {k: v for k, v in env.items() if not k.startswith(
+                ("LD_PRELOAD", "CUDA_DEVICE_MEMORY"))}
+        try:
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--time-child",
+                 case_name, str(SM_LIMIT_STEPS)], env=env, text=True,
+                capture_output=True, timeout=600)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        if proc.returncode != 0:
+            print(f"chip_profile: child failed, rc {proc.returncode}:\n"
+                  f"{proc.stderr[-4000:]}", file=sys.stderr)
+            return 1
+        report = json.loads(proc.stdout.strip().splitlines()[-1])
+        times[limited].append(report["ms"])
+        where = f"{limit}% limit" if limited else "alone"
+        print(f"  {where:10s} {report['ms']:9.3f} ms/step "
+              f"{report['img_s']:8.1f} img/s", flush=True)
+    alone, capped = (statistics.median(times[k]) for k in (False, True))
+    print(f"median alone {alone:.3f} ms/step, at a {limit}% SM limit "
+          f"{capped:.3f} ms/step: {alone / capped:.3f}x the throughput; on "
+          f"{name}", flush=True)
+    return 0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--case", choices=sorted(CASES), default="1.1")
@@ -127,15 +170,18 @@ def main() -> int:
     parser.add_argument("--quota", type=float, help="GiB (--allocators)")
     parser.add_argument("--allocator", action="append",
                         choices=sorted(ALLOCATOR_NAMES))
-    parser.add_argument("--time-child", help=argparse.SUPPRESS)
+    parser.add_argument("--sm-limit", type=int, metavar="PCT")
+    parser.add_argument("--time-child", nargs=2, help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.time_child:
-        time_child(args.time_child)
+        time_child(args.time_child[0], int(args.time_child[1]))
         return 0
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device", file=sys.stderr)
         return 1
     name = card()
+    if args.sm_limit is not None:
+        return compare_sm_limit(name, args.case, args.sm_limit)
     if args.allocators:
         quota = int(args.quota * (1 << 30)) if args.quota else CARD_QUOTA
         allocators = [ALLOCATOR_NAMES[a] for a in args.allocator] \

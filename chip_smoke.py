@@ -49,7 +49,40 @@ built:
    child had a slot while it ran, and the region is clean after it exits;
    it also counts the times the interposer trimmed a memory pool at the
    quota (from its log);
-7. prints the port's native components (the JAX package has no TPU kernel,
+7. compute-plane phases, each in children with their own region file
+   (``--sm-child``, one JSON command and reply per line), every number
+   printed on its own line:
+
+   (a) launch visibility: under ``libvgpu.so`` with no SM limit, the
+       region's launch count over one case 1.1 step is at least the number
+       of kernels ``torch.profiler`` traces for it;
+   (b) unthrottled cost: case 1.1 and case 1.2 ms/step alone, under
+       ``libvgpu.so`` with no SM limit and with ``CUDA_DEVICE_SM_LIMIT=100``;
+       case 1.1 within 3% of alone (case 1.2's printed: host-bound, it
+       spreads between processes);
+   (c) solo throttle: case 1.1 at a 50% limit for 12 s, each step
+       synchronised, runs at 0.40-0.60x its unthrottled img/s, and the
+       device time the region was charged (the slot's ``launch_ns``) is
+       0.8-1.1x the unthrottled CUDA-event step time over those steps;
+   (d) two case 1.1 tenants at 70% and 30% at once for 12 s: img/s ratio
+       in (1.7, 3.2), each below 0.9x and 0.55x of the solo rate; then,
+       printed as their reference, two pods with no limit at once;
+   (e) case 1.1's step captured with ``torch.cuda.CUDAGraph`` at a 50%
+       limit: the capture succeeds, its logits match the eager step's, and
+       replays run at 0.40-0.60x the unthrottled replays;
+   (f) feedback: the parent sets ``recent_kernel = FEEDBACK_BLOCK`` on the
+       30% tenant's region (priority 1): its region launch count stands
+       still while blocked and moves after; ``utilization_switch = 1``
+       lifts its throttle (above 0.8x solo);
+   (g) gate: the parent lowers the 50% child's region limit to its usage;
+       its next step raises an out-of-memory error from the refused
+       launch, and after the limit is restored it runs on;
+   (h) host ledger: pinned tensors up to a 1 GiB
+       ``CUDA_HOST_MEMORY_LIMIT`` are charged to the region's host ledger,
+       one past it raises and the process runs on, ``cudaHostRegister``
+       and ``cudaHostUnregister`` charge and uncharge; each child's region
+       is clean after it exits;
+8. prints the port's native components (the JAX package has no TPU kernel,
    so ``kernels`` is empty) and, last, ``{"ok": true, "device": ...}``.
 
 Any failed phase ends the run with a non-zero exit and no final line. So
@@ -76,7 +109,11 @@ import torch  # noqa: E402
 
 from vtpu_torch import native  # noqa: E402
 from vtpu_torch.enforce import install  # noqa: E402
-from vtpu_torch.enforce.region import RegionView  # noqa: E402
+from vtpu_torch.enforce.region import (  # noqa: E402
+    FEEDBACK_BLOCK,
+    FEEDBACK_IDLE,
+    RegionView,
+)
 from vtpu_torch.models import BENCH_CASES, get_model  # noqa: E402
 from vtpu_torch.models.train import (  # noqa: E402
     build_sharded_train_step,
@@ -551,6 +588,427 @@ def quota_phase(name: str, case_name: str, quota: int,
     return result
 
 
+# ------------------------------------------------------ the compute plane.
+# Children answer one JSON command per line of stdin with one JSON line
+# (--sm-child). Each has its own region file; all but "alone" run under
+# libvgpu.so with a 12 GiB quota and the SM limit, priority and host limit
+# of their phase.
+
+SM_RUN_S = 12.0     # (c), (d): throttled runs, after warm-up
+REF_RUN_S = 4.0     # the unthrottled run they are held to
+GRAPH_RUN_S = 4.0   # (e)
+SWITCH_RUN_S = 3.0  # (f)
+BLOCK_S = 1.0       # (f): how long the block is held
+HOST_LIMIT = 1 * GiB
+PINNED = 256 << 20  # (h): pinned tensors of this size up to the limit
+REGISTERED = 64 << 20
+# (b): case 1.1 with no SM limit and at 100 against the same call's run
+# alone
+UNTHROTTLED_COST = 0.03
+
+
+class SmChild:
+    """A --sm-child process and its region file."""
+
+    def __init__(self, label: str, interposed: bool = True, sm_limit=None,
+                 priority=None, host_limit=None):
+        self.label = label
+        self.tmp, self.cache, env = child_env("", INFER_QUOTA)
+        if not interposed:
+            env = {k: v for k, v in env.items() if not k.startswith(
+                ("LD_PRELOAD", "CUDA_DEVICE_MEMORY"))}
+        for key, value in (("CUDA_DEVICE_SM_LIMIT", sm_limit),
+                           ("CUDA_TASK_PRIORITY", priority),
+                           ("CUDA_HOST_MEMORY_LIMIT", host_limit)):
+            if value is not None:
+                env[key] = str(value)
+        self.errf = open(os.path.join(self.tmp, "child.err"), "w+")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--sm-child"],
+            env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=self.errf, text=True)
+
+    def send(self, op: str, **args) -> None:
+        self.proc.stdin.write(json.dumps(dict(args, op=op)) + "\n")
+        self.proc.stdin.flush()
+
+    def read(self) -> dict:
+        ready, _, _ = select.select([self.proc.stdout], [], [],
+                                    CHILD_TIMEOUT_S)
+        line = self.proc.stdout.readline() if ready else ""
+        if not line:
+            self.errf.seek(0)
+            raise SmokeFailure(f"{self.label} child gave no answer, rc "
+                               f"{self.proc.poll()}:\n"
+                               f"{self.errf.read()[-4000:]}")
+        reply = json.loads(line)
+        check("error" not in reply, f"{self.label} child: {reply.get('error')}")
+        return reply
+
+    def ask(self, op: str, **args) -> dict:
+        self.send(op, **args)
+        return self.read()
+
+    def view(self) -> RegionView:
+        return RegionView(self.cache)
+
+    def close(self) -> None:
+        try:
+            if self.proc.poll() is None:
+                self.proc.communicate("", timeout=CHILD_TIMEOUT_S)
+            rc = self.proc.returncode
+            self.errf.seek(0)
+            err = self.errf.read()
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait(timeout=60)
+            self.errf.close()
+        check(rc == 0, f"{self.label} child rc {rc}:\n{err[-4000:]}")
+        if os.path.exists(self.cache):
+            check_clean(self.cache)
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def sm_child() -> None:
+    """Runs in a --sm-child process: one JSON reply per JSON command."""
+    enf = install()
+    models = {}
+
+    def model(case_name):
+        if case_name not in models:
+            case = CASES[case_name]
+            models[case_name] = build_model(case, torch.bfloat16)
+        return models[case_name]
+
+    def slot():
+        """this process's slot in its region, everything published"""
+        torch.cuda.synchronize()
+        enf.flush_launches()
+        with RegionView(enf.quota.cache_path) as view:
+            (mine,) = [p for p in view.procs() if p.pid == os.getpid()]
+        return mine
+
+    def infer():
+        case = CASES["1.1"]
+        x, _ = make_batch(case, 0)
+        return make_infer_step(model("1.1")), x
+
+    def op_time(cmd):
+        case = CASES[cmd["case"]]
+        _, ms, host_ms, img_s = run_case(case, model(cmd["case"]),
+                                         STEPS[cmd["case"]])
+        return {"ms": ms, "host_ms": host_ms, "img_s": img_s}
+
+    def op_profile(cmd):
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        step, x = infer()
+        for _ in range(WARMUP):
+            step(x)
+        before = slot().launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step(x)
+            torch.cuda.synchronize()
+        after = slot().launches
+        kernels = sum(1 for e in prof.events()
+                      if e.device_type == DeviceType.CUDA
+                      and not e.name.startswith(("Memcpy", "Memset")))
+        return {"region_launches": after - before,
+                "profiler_kernels": kernels}
+
+    def timed(fn, seconds):
+        """fn() then a synchronisation, over and over for ``seconds``:
+        (calls, wall s, the slot's launches and launch_ns over them)"""
+        fn()
+        torch.cuda.synchronize()
+        first = slot() if enf.interposed else None
+        n, t0 = 0, time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            fn()
+            torch.cuda.synchronize()
+            n += 1
+        wall = time.perf_counter() - t0
+        res = {"calls": n, "wall_s": wall}
+        if first is not None:
+            last = slot()
+            res.update(launches=last.launches - first.launches,
+                       launch_ns=last.launch_ns - first.launch_ns)
+        return res
+
+    def op_run(cmd):
+        step, x = infer()
+        for _ in range(WARMUP):
+            step(x)
+        res = timed(lambda: step(x), cmd["seconds"])
+        res["img_s"] = res["calls"] * CASES["1.1"].batch / res["wall_s"]
+        return res
+
+    def op_graph(cmd):
+        step, x = infer()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP):
+                step(x)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = step(x)
+        ref = step(x)
+        graph.replay()
+        torch.cuda.synchronize()
+        drift = rel_l2(out, ref)
+        res = timed(graph.replay, cmd["seconds"])
+        res.update(replays_s=res["calls"] / res["wall_s"],
+                   replay_vs_eager_rel_l2=drift)
+        return res
+
+    def op_step(cmd):
+        step, x = infer()
+        try:
+            out = step(x)
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            return {"raised": str(e).splitlines()[0]}
+        return {"finite": bool(torch.isfinite(out).all())}
+
+    def op_host(cmd):
+        res = {}
+        pinned = []
+        while (len(pinned) + 1) * PINNED <= HOST_LIMIT:
+            pinned.append(torch.empty(PINNED, dtype=torch.uint8,
+                                      pin_memory=True))
+        res["pinned"] = len(pinned) * PINNED
+        res["charged"] = enf.host_used()
+        try:
+            torch.empty(PINNED, dtype=torch.uint8, pin_memory=True)
+            res["past_limit"] = "allocated"
+        except RuntimeError as e:
+            res["past_limit"] = str(e).splitlines()[0]
+        # one pinned tensor less: the process runs on and pins again
+        pinned.pop()
+        torch._C._host_emptyCache()
+        res["after_release"] = enf.host_used()
+        small = torch.ones(1 << 20).pin_memory()
+        res["runs_on"] = bool(small.cuda().sum().item() == (1 << 20))
+        plain = torch.empty(REGISTERED, dtype=torch.uint8)
+        cudart = torch.cuda.cudart()
+        before = enf.host_used()
+        check(int(cudart.cudaHostRegister(plain.data_ptr(), REGISTERED,
+                                          0)) == 0, "cudaHostRegister")
+        res["registered"] = enf.host_used() - before
+        check(int(cudart.cudaHostUnregister(plain.data_ptr())) == 0,
+              "cudaHostUnregister")
+        res["unregistered"] = enf.host_used() - before
+        return res
+
+    ops = {"time": op_time, "profile": op_profile, "run": op_run,
+           "graph": op_graph, "step": op_step, "host": op_host}
+    for line in sys.stdin:
+        cmd = json.loads(line)
+        try:
+            reply = ops[cmd["op"]](cmd)
+        except Exception as e:  # reported to the parent, which fails
+            reply = {"error": f"{type(e).__name__}: {e}"}
+        print(json.dumps(reply), flush=True)
+
+
+def compute_phases(name: str) -> list:
+    """Phases (a)-(h) of the compute plane; see the module docstring."""
+    children = {}
+    phases = []
+
+    def start(label, **kw):
+        children[label] = SmChild(label, **kw)
+        return children[label]
+
+    try:
+        alone = start("alone", interposed=False)
+        free = start("no SM limit")
+        full = start("SM limit 100", sm_limit=100)
+        half = start("SM limit 50", sm_limit=50)
+        hi = start("SM limit 70", sm_limit=70)
+        lo = start("SM limit 30", sm_limit=30, priority=1)
+        host = start("host limit", host_limit=HOST_LIMIT)
+
+        # (b) unthrottled cost, then (a) launch visibility
+        times = {}
+        for case_name in ("1.1", "1.2"):
+            for child in (alone, free, full):
+                times[case_name, child.label] = child.ask(
+                    "time", case=case_name)
+        cost = {}
+        for case_name in ("1.1", "1.2"):
+            base = times[case_name, "alone"]["ms"]
+            res = {"phase": f"(b) case {case_name} unthrottled cost"}
+            for child in (alone, free, full):
+                ms = times[case_name, child.label]["ms"]
+                res[child.label] = ms
+                res[f"{child.label} vs alone"] = ms / base - 1
+            print(f"(b) case {case_name} ms/step (CUDA events, "
+                  f"{STEPS[case_name]} steps): alone {base:.3f}; under "
+                  f"libvgpu.so with no SM limit "
+                  f"{res['no SM limit']:.3f} "
+                  f"({res['no SM limit vs alone']:+.2%}), at 100 "
+                  f"{res['SM limit 100']:.3f} "
+                  f"({res['SM limit 100 vs alone']:+.2%}); on {name}",
+                  flush=True)
+            phases.append(res)
+            cost[case_name] = res
+        for label in ("no SM limit", "SM limit 100"):
+            slower = cost["1.1"][f"{label} vs alone"]
+            check(slower <= UNTHROTTLED_COST, f"(b) case 1.1 under "
+                  f"libvgpu.so ({label}) {slower:+.2%} slower than alone")
+        seen = free.ask("profile")
+        print(f"(a) case 1.1, one step under libvgpu.so: "
+              f"{seen['region_launches']} launches in the region, "
+              f"{seen['profiler_kernels']} kernels traced by torch.profiler;"
+              f" on {name}", flush=True)
+        check(seen["region_launches"] >= seen["profiler_kernels"] > 0,
+              "(a) launches escaped the interposer")
+        phases.append(dict(seen, phase="(a) launch visibility"))
+
+        # the unthrottled references, then (c) and (e) at 50%
+        ref = free.ask("run", seconds=REF_RUN_S)
+        ref_graph = free.ask("graph", seconds=GRAPH_RUN_S)
+        solo = ref["img_s"]
+        step_ms = times["1.1", "no SM limit"]["ms"]
+        run = half.ask("run", seconds=SM_RUN_S)
+        share = run["img_s"] / solo
+        debit = run["launch_ns"] / 1e6 / (run["calls"] * step_ms)
+        print(f"(c) case 1.1 at a 50% SM limit for {run['wall_s']:.1f} s: "
+              f"{run['img_s']:.1f} img/s, {share:.3f}x the unthrottled "
+              f"{solo:.1f} img/s; debited device time "
+              f"{run['launch_ns'] / 1e6 / run['calls']:.3f} ms/step, "
+              f"{debit:.3f}x the unthrottled CUDA-event step of "
+              f"{step_ms:.3f} ms; on {name}", flush=True)
+        phases.append({"phase": "(c) case 1.1 at 50%", "img_s": run["img_s"],
+                       "unthrottled_img_s": solo, "share": share,
+                       "debit_vs_event_time": debit, **run})
+        check(0.40 <= share <= 0.60, f"(c) 50% ran at {share:.3f}x")
+        check(0.8 <= debit <= 1.1, f"(c) debited {debit:.3f}x the step time")
+        g = half.ask("graph", seconds=GRAPH_RUN_S)
+        gshare = g["replays_s"] / ref_graph["replays_s"]
+        print(f"(e) case 1.1 captured as a CUDA graph: replays at a 50% SM "
+              f"limit {g['replays_s']:.2f}/s, {gshare:.3f}x the unthrottled "
+              f"{ref_graph['replays_s']:.2f}/s; replay vs eager logits rel "
+              f"L2 {g['replay_vs_eager_rel_l2']:.3e}; charged "
+              f"{g['launch_ns'] / 1e6 / g['calls']:.3f} ms/replay over "
+              f"{g['launches']} launches; on {name}", flush=True)
+        phases.append({"phase": "(e) graph replay at 50%", "share": gshare,
+                       "unthrottled_replays_s": ref_graph["replays_s"], **g})
+        check(0.40 <= gshare <= 0.60, f"(e) 50% replays at {gshare:.3f}x")
+        check(g["replay_vs_eager_rel_l2"] <= BF16_REL, "(e) replay logits")
+
+        # (g) the gate
+        ok = half.ask("step")
+        with half.view() as view:
+            gated = view.pressure()["near_limit_failures"]
+            _, applied = view.set_limit_checked(1)
+            refused = half.ask("step")
+            gated = view.pressure()["near_limit_failures"] - gated
+            view.set_limit_checked(INFER_QUOTA)
+        again = half.ask("step")
+        print(f"(g) limit lowered to the usage ({applied} B): the next step "
+              f"raised \"{refused.get('raised')}\" after {gated} refused "
+              f"launch(es); restored, the step ran (finite logits "
+              f"{again.get('finite')}); on {name}", flush=True)
+        phases.append({"phase": "(g) gate", "lowered_to": applied,
+                       "raised": refused.get("raised"),
+                       "gate_refusals": gated,
+                       "finite_after": again.get("finite")})
+        check(ok.get("finite") is True, "(g) step before the gate")
+        check("out of memory" in refused.get("raised", "") and gated >= 1,
+              f"(g) step past the lowered limit: {refused}, {gated} gate "
+              f"refusals")
+        check(again.get("finite") is True, "(g) step after the restore")
+
+        # (d) two tenants at once
+        for child in (hi, lo):
+            child.send("run", seconds=SM_RUN_S)
+        pair = {child.label: child.read() for child in (hi, lo)}
+        r70, r30 = (pair[c.label]["img_s"] for c in (hi, lo))
+        c70, c30 = (pair[c.label]["launch_ns"] / 1e9 / pair[c.label]["wall_s"]
+                    for c in (hi, lo))
+        ratio = r70 / r30
+        print(f"(d) two case 1.1 tenants at once for {SM_RUN_S:.0f} s: 70% "
+              f"{r70:.1f} img/s ({r70 / solo:.3f}x solo, charged {c70:.3f} "
+              f"of wall time), 30% {r30:.1f} img/s ({r30 / solo:.3f}x solo, "
+              f"charged {c30:.3f}), ratio {ratio:.3f}; on {name}",
+              flush=True)
+        phases.append({"phase": "(d) 70/30 pair", "img_s_70": r70,
+                       "img_s_30": r30, "ratio": ratio, "solo_img_s": solo,
+                       "charged_share_70": c70, "charged_share_30": c30})
+        check(1.7 < ratio < 3.2, f"(d) ratio {ratio:.3f}")
+        check(r70 < 0.9 * solo and r30 < 0.55 * solo, "(d) shares")
+        # what the card gives two contexts with no limit: the pair's
+        # reference (printed, not gated)
+        for child in (free, full):
+            child.send("run", seconds=REF_RUN_S)
+        both = [child.read()["img_s"] / solo for child in (free, full)]
+        print(f"(d) two case 1.1 pods with no SM limit at once for "
+              f"{REF_RUN_S:.0f} s: {both[0]:.3f}x and {both[1]:.3f}x solo, "
+              f"{sum(both):.3f} of one card together; on {name}", flush=True)
+        phases[-1]["unlimited_pair_shares"] = both
+
+        # (f) feedback on the 30% tenant (priority 1)
+        with lo.view() as view:
+            lo.send("run", seconds=3 * BLOCK_S)
+            time.sleep(BLOCK_S / 2)
+            view.set_recent_kernel(FEEDBACK_BLOCK)
+            time.sleep(0.3)
+            held = view.total_launches()
+            time.sleep(BLOCK_S)
+            still = view.total_launches()
+            view.set_recent_kernel(FEEDBACK_IDLE)
+            lo.read()
+            resumed = view.total_launches()
+            spins = view.pressure()["contention_spins"]
+            limited = lo.ask("run", seconds=SWITCH_RUN_S)["img_s"]
+            view.set_utilization_switch(1)
+            lifted = lo.ask("run", seconds=SWITCH_RUN_S)["img_s"]
+            view.set_utilization_switch(0)
+        print(f"(f) priority-1 tenant blocked for {BLOCK_S:.1f} s: region "
+              f"launches {held} -> {still} while blocked, {resumed} after; "
+              f"{spins} contention spins; at 30% {limited:.1f} img/s, with "
+              f"utilization_switch=1 {lifted:.1f} img/s "
+              f"({lifted / solo:.3f}x solo); on {name}", flush=True)
+        phases.append({"phase": "(f) feedback", "held": held,
+                       "still": still, "resumed": resumed,
+                       "img_s_30": limited, "img_s_switch": lifted})
+        check(still == held and resumed > still, "(f) block did not hold")
+        check(limited < 0.55 * solo and lifted > 0.8 * solo,
+              "(f) utilization_switch did not lift the throttle")
+
+        # (h) the host ledger
+        h = host.ask("host")
+        print(f"(h) {h['pinned']} B pinned under a {HOST_LIMIT} B host "
+              f"limit, {h['charged']} B charged; one more raised "
+              f"\"{h['past_limit']}\"; {h['after_release']} B charged "
+              f"after one was released; cudaHostRegister charged "
+              f"{h['registered']} B, unregister left {h['unregistered']} B; "
+              f"on {name}", flush=True)
+        phases.append(dict(h, phase="(h) host ledger"))
+        check(h["charged"] == h["pinned"] == HOST_LIMIT // PINNED * PINNED,
+              "(h) pinned memory not charged")
+        check("out of memory" in h["past_limit"], "(h) past the limit")
+        check(h["after_release"] == h["pinned"] - PINNED and h["runs_on"],
+              "(h) release")
+        check(h["registered"] == REGISTERED and h["unregistered"] == 0,
+              "(h) register")
+        for label in list(children):
+            children.pop(label).close()
+    finally:
+        for child in children.values():
+            if child.proc.poll() is None:
+                child.proc.kill()
+                child.proc.wait(timeout=60)
+            child.errf.close()
+            shutil.rmtree(child.tmp, ignore_errors=True)
+    return phases
+
+
 NATIVE = [
     {"name": "libvgpu.so", "route": "gcc", "source":
      "vtpu_torch/csrc/libvgpu.c", "replaces": "lib/vtpu/libvtpu.c:1007",
@@ -560,7 +1018,12 @@ NATIVE = [
                "cuMemAllocAsync", "cuMemAllocAsync_ptsz",
                "cuMemAllocFromPoolAsync", "cuMemAllocFromPoolAsync_ptsz",
                "cuMemFreeAsync", "cuMemFreeAsync_ptsz", "cuMemPoolTrimTo",
-               "cuMemPoolDestroy"]},
+               "cuMemPoolDestroy", "cuLaunchKernel", "cuLaunchKernel_ptsz",
+               "cuLaunchKernelEx", "cuLaunchKernelEx_ptsz",
+               "cuLaunchCooperativeKernel", "cuLaunchCooperativeKernel_ptsz",
+               "cuGraphLaunch", "cuGraphLaunch_ptsz", "cuMemHostAlloc",
+               "cuMemAllocHost_v2", "cuMemFreeHost", "cuMemHostRegister_v2",
+               "cuMemHostUnregister"]},
     {"name": "libvgpucore.so", "route": "gcc", "source":
      "vtpu_torch/csrc/shared_region.c", "replaces":
      "lib/vtpu/shared_region.c:476"},
@@ -573,6 +1036,9 @@ def main() -> int:
         return 0
     if len(sys.argv) > 1 and sys.argv[1] == "--peak-child":
         peak_child(sys.argv[2])
+        return 0
+    if len(sys.argv) > 1 and sys.argv[1] == "--sm-child":
+        sm_child()
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -601,6 +1067,7 @@ def main() -> int:
               f"rounded up to whole GiB: {quota} B", flush=True)
         phases.append(dict(quota_phase(name, "1.2", quota, alloc_conf),
                            max_memory_reserved_alone=peak))
+    phases += compute_phases(name)
     print(json.dumps({"card": name, "phases": phases}), flush=True)
     print(json.dumps({"kernels": [], "native": NATIVE}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,6 +6,7 @@ cuGetProcAddress by base name + version."""
 
 import json
 import os
+import select
 import subprocess
 import sys
 import textwrap
@@ -275,12 +276,12 @@ def test_disable_control_passes_through(tmp_path, libs):
     assert not os.path.exists(cache)
 
 
-def test_stream_ordered_allocator_exits_instead_of_running_unenforced(
+def test_stream_ordered_allocation_runs_enforced_and_exits_normally(
         tmp_path, libs):
-    """The child that selects the stream-ordered allocator no longer has to
-    stop (the interposer used to exit it with code 78): its pool
-    allocation runs enforced, charged at the pool's reservation (one
-    32 MiB chunk of the mock's pool for 4 KiB), and it exits normally."""
+    """A child that allocates from the stream-ordered allocator runs
+    enforced: the allocation is charged at the pool's reservation (one
+    32 MiB chunk of the mock's pool for 4 KiB), and the child exits
+    normally."""
     env, _ = child_env(tmp_path)
     proc = run_child(env, "async")
     assert proc.returncode == 0, proc.stderr
@@ -504,3 +505,135 @@ def test_pool_hooks_pass_through_with_control_disabled(tmp_path, libs):
     assert not any(out["hooked"].values()), out["hooked"]
     assert out["over"] == 0
     assert not os.path.exists(cache)
+
+
+HOST_CHILD = textwrap.dedent(r"""
+    import ctypes, json, mmap, os, sys
+    from ctypes import (CFUNCTYPE, POINTER, byref, c_char_p, c_int,
+                        c_size_t, c_uint, c_uint64, c_ulong, c_ulonglong,
+                        c_void_p)
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    vg = ctypes.CDLL(os.environ["LD_PRELOAD"])
+    cu.mock_cuda_host_calls.restype = c_ulong
+    GPA2 = CFUNCTYPE(c_int, c_char_p, POINTER(c_void_p), c_int, c_uint64,
+                     POINTER(c_int))
+    gpa2 = GPA2(ctypes.cast(cu.cuGetProcAddress_v2, c_void_p).value)
+
+    def via2(base):
+        p, st = c_void_p(), c_int(-1)
+        assert gpa2(base.encode(), byref(p), 12080, 0, byref(st)) == 0, base
+        return p.value
+
+    class Loc(ctypes.Structure):
+        _fields_ = [("type", c_int), ("id", c_int)]
+
+    class Prop(ctypes.Structure):
+        _fields_ = [("type", c_int), ("handle_types", c_int),
+                    ("location", Loc), ("win32", c_void_p),
+                    ("flags", ctypes.c_ubyte * 8)]
+
+    HOOKS = [("cuMemHostAlloc", "cuMemHostAlloc"),
+             ("cuMemAllocHost", "cuMemAllocHost_v2"),
+             ("cuMemFreeHost", "cuMemFreeHost"),
+             ("cuMemHostRegister", "cuMemHostRegister_v2"),
+             ("cuMemHostUnregister", "cuMemHostUnregister")]
+    out = {"hooked": {b: via2(b) == ctypes.cast(getattr(vg, e),
+                                                   c_void_p).value
+                      for b, e in HOOKS}}
+    host_alloc = CFUNCTYPE(c_int, POINTER(c_void_p), c_size_t, c_uint)(
+        via2("cuMemHostAlloc"))
+    alloc_host = CFUNCTYPE(c_int, POINTER(c_void_p), c_size_t)(
+        via2("cuMemAllocHost"))
+    free_host = CFUNCTYPE(c_int, c_void_p)(via2("cuMemFreeHost"))
+    register = CFUNCTYPE(c_int, c_void_p, c_size_t, c_uint)(
+        via2("cuMemHostRegister"))
+    unregister = CFUNCTYPE(c_int, c_void_p)(via2("cuMemHostUnregister"))
+    create = CFUNCTYPE(c_int, POINTER(c_ulonglong), c_size_t, POINTER(Prop),
+                       c_ulonglong)(via2("cuMemCreate"))
+    release = CFUNCTYPE(c_int, c_ulonglong)(via2("cuMemRelease"))
+    MiB = 1 << 20
+
+    def step(name, rc):
+        # the call's code and how many host calls reached the driver
+        out[name] = [rc, cu.mock_cuda_host_calls()]
+
+    a, b = c_void_p(), c_void_p()
+    step("host_alloc", host_alloc(byref(a), 40 * MiB, 0))
+    step("alloc_host_over", alloc_host(byref(b), 30 * MiB))
+    buf = mmap.mmap(-1, 16 * MiB)
+    p = ctypes.addressof(ctypes.c_char.from_buffer(buf))
+    step("register", register(p, 16 * MiB, 0))
+    prop = Prop()
+    prop.location.type = 2  # CU_MEM_LOCATION_TYPE_HOST
+    h = c_ulonglong()
+    step("create_over", create(byref(h), 16 * MiB, byref(prop), 0))
+    print(json.dumps(out), flush=True)
+    sys.stdin.readline()  # the parent reads the region
+    step("unregister", unregister(p))
+    step("create", create(byref(h), 16 * MiB, byref(prop), 0))
+    step("alloc_host", alloc_host(byref(b), 8 * MiB))
+    print(json.dumps(out), flush=True)
+    sys.stdin.readline()
+    out = {"free": [free_host(a), free_host(b), release(h.value)]}
+    print(json.dumps(out), flush=True)
+    sys.stdin.readline()
+""")
+
+
+def test_host_ledger_charges_refuses_and_uncharges(tmp_path, libs,
+                                                   monkeypatch):
+    """Pinned host memory under CUDA_HOST_MEMORY_LIMIT=64m, through every
+    host hook: cuMemHostAlloc, cuMemAllocHost_v2, cuMemHostRegister_v2 and
+    host-located cuMemCreate are charged to the region's host ledger; one
+    past the limit is refused with CUDA_ERROR_OUT_OF_MEMORY before the
+    driver is called; cuMemHostUnregister, cuMemFreeHost and cuMemRelease
+    uncharge. The JAX package's RegionView reads the same bytes."""
+    env, cache = child_env(tmp_path, **{api.ENV_HOST_MEMORY_LIMIT: "64m"})
+    proc = subprocess.Popen([sys.executable, "-c", HOST_CHILD], env=env,
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    import vtpu.enforce.region as jax_region
+    monkeypatch.setenv("VTPU_CORE_LIB", native.core_library())
+    monkeypatch.setattr(jax_region, "_lib", None)
+    monkeypatch.setattr(jax_region, "_abi_checked", False)
+
+    def host_used():
+        with jax_region.RegionView(cache) as view:
+            assert view.host_limit() == 64 * MiB
+            return view.host_used()
+
+    def line():
+        ready, _, _ = select.select([proc.stdout], [], [], 60)
+        assert ready, "no answer from the child in 60 s"
+        return json.loads(proc.stdout.readline())
+
+    try:
+        first = line()
+        held_first = host_used()
+        proc.stdin.write("go\n")
+        proc.stdin.flush()
+        second = line()
+        held_second = host_used()
+        proc.stdin.write("go\n")
+        proc.stdin.flush()
+        third = line()
+        held_third = host_used()
+        proc.communicate("go\n", timeout=60)
+    finally:
+        proc.kill()
+        proc.wait(timeout=60)
+    assert proc.returncode == 0
+    assert all(first["hooked"].values()), first["hooked"]
+    assert first["host_alloc"] == [0, 1]
+    assert first["alloc_host_over"] == [2, 1]  # refused, driver not called
+    assert first["register"] == [0, 2]
+    assert first["create_over"] == [2, 2]
+    assert held_first == 56 * MiB
+    assert second["unregister"] == [0, 2]
+    assert second["create"] == [0, 3]
+    assert second["alloc_host"] == [0, 4]
+    assert held_second == 64 * MiB
+    assert third["free"] == [0, 0, 0] and held_third == 0
+    with RegionView(cache) as view:
+        assert view.procs() == [] and view.host_used() == 0

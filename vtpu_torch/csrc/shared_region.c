@@ -962,6 +962,44 @@ int32_t vtpu_inflight(vtpu_shared_region_t *r, int64_t max_age_ns) {
   return n;
 }
 
+/* The port's batched launch ledger (not in lib/vtpu/shared_region.c):
+ * libvgpu.so counts and measures launches in the process and publishes
+ * them here once per batch, so the region lock is taken once per batch,
+ * not once per kernel. Same effect as `launches` vtpu_note_launch calls
+ * followed by the completions they stand for: the slot's launches and
+ * total_launches grow by `launches` (recent_kernel bumped the same way),
+ * its inflight by `inflight` (negative when completions outnumber the
+ * launches measured), its launch_ns by the device time in debit_ns, and
+ * device d's bucket is debited debit_ns[d] under vtpu_note_complete's
+ * rule. */
+void vtpu_note_batch(vtpu_shared_region_t *r, int32_t pid, uint64_t launches,
+                     int32_t inflight,
+                     const uint64_t debit_ns[VTPU_MAX_DEVICES]) {
+  if (!r) return;
+  if (region_lock(r)) return;
+  uint64_t busy = 0;
+  for (int d = 0; d < VTPU_MAX_DEVICES; d++) busy += debit_ns[d];
+  vtpu_proc_slot_t *s = find_slot(r, pid);
+  if (s) {
+    s->launches += launches;
+    s->launch_ns += busy;
+    s->inflight += inflight;
+    if (s->inflight < 0) s->inflight = 0;
+    s->last_seen_ns = now_ns();
+  }
+  r->total_launches += launches;
+  int32_t rk = __atomic_load_n(&r->recent_kernel, __ATOMIC_RELAXED);
+  if (rk >= 0 && rk < 1024 && launches) {
+    uint64_t next = (uint64_t)rk + launches;
+    __atomic_store_n(&r->recent_kernel, next > 1024 ? 1024 : (int32_t)next,
+                     __ATOMIC_RELAXED);
+  }
+  util_sync_switch(r, now_ns());
+  for (int d = 0; d < VTPU_MAX_DEVICES; d++)
+    if (debit_ns[d]) util_debit_locked(r, 1u << d, debit_ns[d]);
+  region_unlock(r);
+}
+
 int vtpu_util_try_acquire(vtpu_shared_region_t *r, int dev,
                           uint32_t limit_pct, int64_t burst_ns) {
   if (!r || dev < 0 || dev >= VTPU_MAX_DEVICES) return 1;

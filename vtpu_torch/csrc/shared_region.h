@@ -451,6 +451,12 @@ void vtpu_note_launch(vtpu_shared_region_t *r, int32_t pid, uint64_t est_ns);
 void vtpu_note_complete(vtpu_shared_region_t *r, int32_t pid, uint64_t ns,
                         uint32_t dev_mask);
 
+/* Port only: publish a batch of launches and measured completions in one
+ * lock acquisition (see shared_region.c). */
+void vtpu_note_batch(vtpu_shared_region_t *r, int32_t pid, uint64_t launches,
+                     int32_t inflight,
+                     const uint64_t debit_ns[VTPU_MAX_DEVICES]);
+
 /* Sum of in-flight programs over live slots whose heartbeat is fresher
  * than `max_age_ns` (0 = no freshness filter). A SIGKILLed process can
  * leave inflight > 0 forever; consumers treating inflight as activity

@@ -8,7 +8,10 @@ ABI v8 struct, read and written through the port's ``libvgpucore.so``
   (configure, attach/detach, GC, charges, the host ledger); what the
   workload side uses.
 - :class:`RegionView` / :class:`RegionSnapshot` — the monitor's mmap of a
-  region file: limits, used bytes, process slots, heartbeat age.
+  region file: limits, used bytes, process slots, heartbeat age; the view
+  also reads the compute plane (launch counts, measured device time, the
+  feedback fields and the pressure counters) and writes what the monitor
+  writes (the feedback fields, a checked limit resize).
 
 The layout must track shared_region.h exactly. tests/test_torch_enforce.py
 holds it to the JAX package's mirror byte for byte: a region this module
@@ -39,6 +42,22 @@ VTPU_PROF_PRESSURE_KINDS = 7
 UTIL_POLICY_DEFAULT = 0
 UTIL_POLICY_FORCE = 1
 UTIL_POLICY_DISABLE = 2
+
+# recent_kernel feedback states: the monitor blocks a low-priority
+# container's launches with FEEDBACK_BLOCK and releases it with IDLE
+FEEDBACK_BLOCK = -1
+FEEDBACK_IDLE = 0
+
+# return codes of the checked limit resize
+RESIZE_APPLIED = 0
+RESIZE_CLAMPED = 1
+
+# the pressure counters (VTPU_PROF_PK_*), in the region's order
+PROF_PRESSURE_NAMES = (
+    "charge_retries", "contention_spins", "at_limit_ns",
+    "near_limit_failures", "table_drops",
+    "host_near_limit_failures", "host_over_events",
+)
 
 # pthread_mutex_t is 40 bytes on x86-64 glibc; the C struct embeds it, so
 # it is mirrored as an opaque blob (checked against the C sizeof)
@@ -140,6 +159,9 @@ def _load(path: str):
     lib.vtpu_region_host_used.argtypes = [P]
     lib.vtpu_region_header_checksum.restype = u64
     lib.vtpu_region_header_checksum.argtypes = [P]
+    lib.vtpu_region_set_limit_checked.restype = ctypes.c_int
+    lib.vtpu_region_set_limit_checked.argtypes = [
+        P, ctypes.c_int, u64, ctypes.POINTER(u64)]
     lib.vtpu_region_sizeof.restype = ctypes.c_size_t
     lib.vtpu_region_sizeof.argtypes = []
     c_size = lib.vtpu_region_sizeof()
@@ -267,6 +289,10 @@ class ProcUsage:
     pid: int
     hbm_used: List[int]
     last_seen_ns: int
+    launches: int = 0
+    launch_ns: int = 0
+    inflight: int = 0
+    host_used: int = 0
 
 
 class RegionSnapshot:
@@ -378,5 +404,59 @@ class RegionView:
         n = self.num_devices
         return [ProcUsage(pid=int(s.pid),
                           hbm_used=[int(x) for x in s.hbm_used[:n]],
-                          last_seen_ns=int(s.last_seen_ns))
+                          last_seen_ns=int(s.last_seen_ns),
+                          launches=int(s.launches),
+                          launch_ns=int(s.launch_ns),
+                          inflight=int(s.inflight),
+                          host_used=int(s.host_used))
                 for s in self._s.procs if s.status]
+
+    def set_limit_checked(self, value: int, dev: int = 0):
+        """Write device ``dev``'s limit live through the checked C call
+        (``vtpu_region_set_limit_checked``): under the region lock a shrink
+        below the usage is clamped to the usage, the header checksum is
+        restamped and the usage epoch bumped, so the launch gate sees the
+        new limit at its next launch. ``(rc, applied)``, rc
+        :data:`RESIZE_APPLIED` or :data:`RESIZE_CLAMPED`."""
+        applied = ctypes.c_uint64(0)
+        rc = int(load_core_library().vtpu_region_set_limit_checked(
+            ctypes.byref(self._s), dev, value, ctypes.byref(applied)))
+        if rc < 0:
+            raise ValueError(f"{self.path}: set_limit_checked(dev={dev}) "
+                             "refused")
+        return rc, int(applied.value)
+
+    # -- the compute plane (vtpu/enforce/region.py:991-1080) --------------
+    def core_limit(self, dev: int = 0) -> int:
+        return int(self._s.core_limit[dev])
+
+    def total_launches(self) -> int:
+        """Launches of the container's lifetime (per-slot counts end with
+        their process)."""
+        return int(self._s.total_launches)
+
+    @property
+    def recent_kernel(self) -> int:
+        return int(self._s.recent_kernel)
+
+    def set_recent_kernel(self, v: int) -> None:
+        self._s.recent_kernel = v
+
+    @property
+    def utilization_switch(self) -> int:
+        return int(self._s.utilization_switch)
+
+    def set_utilization_switch(self, v: int) -> None:
+        self._s.utilization_switch = v
+
+    # -- the host-memory ledger ------------------------------------------
+    def host_limit(self) -> int:
+        return int(self._s.host_limit)
+
+    def host_used(self) -> int:
+        return sum(int(s.host_used) for s in self._s.procs if s.status)
+
+    def pressure(self) -> dict:
+        """The pressure counters by name (:data:`PROF_PRESSURE_NAMES`)."""
+        return {name: int(self._s.prof_pressure[i])
+                for i, name in enumerate(PROF_PRESSURE_NAMES)}

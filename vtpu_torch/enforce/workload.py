@@ -156,6 +156,14 @@ class Enforcer:
             self.region.close()
             self.region = None
 
+    def flush_launches(self) -> None:
+        """Have libvgpu.so charge the launches whose device work is done and
+        publish its launch counts to the region now; it does so by itself
+        every 100 ms and every 256 launches. For a reader of the region
+        right after a synchronisation."""
+        if self.interposed:
+            ctypes.CDLL(None).vgpu_flush_launches()
+
     def used(self, dev: int = 0) -> int:
         return self.region.used(dev) if self.region else 0
 
