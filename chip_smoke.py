@@ -82,7 +82,27 @@ built:
        one past it raises and the process runs on, ``cudaHostRegister``
        and ``cudaHostUnregister`` charge and uncharge; each child's region
        is clean after it exits;
-8. prints the port's native components (the JAX package has no TPU kernel,
+8. phase (i), the node agent (vtpu_torch/plugin): NVML enumerates the
+   cards in this process (its time printed), each card's UUID, name and
+   MiB equal to torch's and ``nvidia-smi``'s and its ``/dev/nvidia<minor>``,
+   ``/dev/nvidiactl`` and ``/dev/nvidia-uvm`` present. The device plugin
+   then runs in a child through its entry point
+   (``vtpu_torch.plugin.__main__.main``) with an in-memory apiserver
+   (``FakeKubeClient``) and temp dirs for kubelet's socket dir and the shim
+   host dir; it registers with a fake kubelet, ListAndWatch gives
+   10 x cards healthy replicas and the register annotation decodes to the
+   NVML inventory. The script plays the scheduler (the assignment
+   annotations of one card, ``gpumem`` 12288 MiB, ``gpucores`` 50, written
+   with the port's codec at bind-phase ``allocating``) and kubelet
+   (Allocate over the plugin's socket, its latency printed); bind-phase
+   turns ``success``. The plugin process imported no torch and took no
+   device memory or context. A case 1.1 ``--sm-child`` started with only
+   the response's env and mounts (vtpu_torch/plugin/runtime.py) sees a
+   12 GiB ``mem_get_info`` total, is refused one allocation past it and
+   runs on, runs at 0.40-0.60x phase (c)'s unthrottled img/s for 12 s, and
+   its region at the mount's host path carries the limit, the SM limit 50
+   and its slot, and is clean after it exits;
+9. prints the port's native components (the JAX package has no TPU kernel,
    so ``kernels`` is empty) and, last, ``{"ok": true, "device": ...}``.
 
 Any failed phase ends the run with a non-zero exit and no final line. So
@@ -101,6 +121,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent import futures
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
@@ -125,6 +146,7 @@ from vtpu_torch.models.train import (  # noqa: E402
 
 CASES = {c.case: c for c in BENCH_CASES if c.case in ("1.1", "1.2")}
 GiB = 1 << 30
+MiB = 1 << 20
 INFER_QUOTA = 12 * GiB
 ALLOCATORS = ("", "expandable_segments:True", "backend:cudaMallocAsync")
 # bf16 against the f32 computation: the CPU parity tests' tolerance
@@ -611,9 +633,15 @@ class SmChild:
     """A --sm-child process and its region file."""
 
     def __init__(self, label: str, interposed: bool = True, sm_limit=None,
-                 priority=None, host_limit=None):
+                 priority=None, host_limit=None, given=None):
+        """``given`` = (env, region file) replaces the env this class
+        builds (phase (i): the env of an Allocate response)."""
         self.label = label
-        self.tmp, self.cache, env = child_env("", INFER_QUOTA)
+        if given is not None:
+            env, self.cache = given
+            self.tmp = tempfile.mkdtemp(prefix="vgpu-smoke-")
+        else:
+            self.tmp, self.cache, env = child_env("", INFER_QUOTA)
         if not interposed:
             env = {k: v for k, v in env.items() if not k.startswith(
                 ("LD_PRELOAD", "CUDA_DEVICE_MEMORY"))}
@@ -803,8 +831,28 @@ def sm_child() -> None:
         res["unregistered"] = enf.host_used() - before
         return res
 
+    def op_quota(cmd):
+        """the quota as the process sees it, with the model and a step's
+        memory charged; then one allocation of the whole quota, which
+        cannot fit, and a step after it"""
+        step, x = infer()
+        step(x)
+        torch.cuda.synchronize()
+        free, total = torch.cuda.mem_get_info()
+        try:
+            torch.empty(total, dtype=torch.uint8, device="cuda")
+            refused = None
+        except torch.OutOfMemoryError as e:
+            refused = ". ".join(str(e).split(". ")[:2])
+        out = step(x)
+        torch.cuda.synchronize()
+        return {"total": total, "free": free, "refused": refused,
+                "finite_after": bool(torch.isfinite(out).all()),
+                "pid": os.getpid()}
+
     ops = {"time": op_time, "profile": op_profile, "run": op_run,
-           "graph": op_graph, "step": op_step, "host": op_host}
+           "graph": op_graph, "step": op_step, "host": op_host,
+           "quota": op_quota}
     for line in sys.stdin:
         cmd = json.loads(line)
         try:
@@ -1009,6 +1057,357 @@ def compute_phases(name: str) -> list:
     return phases
 
 
+# ------------------------------------------------------ (i) the node agent.
+# The device plugin runs in its own process, started through its entry
+# point with an in-memory apiserver (FakeKubeClient) that this script reads
+# and writes through the child's stdin/stdout (one JSON command and reply
+# per line). The child imports vtpu_torch's plugin only: no torch.
+
+PLUGIN_CHILD = r"""
+import json, os, signal, sys, threading, time
+from vtpu_torch.plugin.__main__ import main
+from vtpu_torch.plugin.nvml import NvmlLib
+from vtpu_torch.util.client import FakeKubeClient
+
+node, sock_dir, shim_dir, split = sys.argv[1:5]
+# NVML's cost in a process that never initialised CUDA, as the plugin's
+t0 = time.perf_counter()
+lib = NvmlLib()
+t1 = time.perf_counter()
+lib.enumerate()
+t2 = time.perf_counter()
+lib.close()
+cold = {"init_ms": (t1 - t0) * 1e3, "enumerate_ms": (t2 - t1) * 1e3}
+client = FakeKubeClient()
+client.add_node(node)
+out = sys.stdout
+sys.stdout = sys.stderr  # the replies own the real stdout
+
+
+def serve():
+    for line in sys.stdin:
+        cmd = json.loads(line)
+        op = cmd["op"]
+        if op == "stop":
+            os.kill(os.getpid(), signal.SIGINT)
+            return
+        if op == "add_pod":
+            reply = client.add_pod(cmd["pod"])
+        elif op == "get_pod":
+            reply = client.get_pod("default", cmd["name"])
+        elif op == "get_node":
+            reply = client.get_node(node)
+        elif op == "patch_node":
+            reply = client.patch_node_annotations(node, cmd["annos"])
+        elif op == "nvml":
+            reply = cold
+        else:
+            reply = {"modules": sorted(
+                m for m in sys.modules
+                if m.split(".")[0] in ("torch", "jax", "vtpu"))}
+        out.write(json.dumps(reply) + "\n")
+        out.flush()
+
+
+threading.Thread(target=serve, daemon=True).start()
+main(["--node-name", node, "--socket-dir", sock_dir, "--shim-host-dir",
+      shim_dir, "--health-port", "-1", "--node-config-file", os.devnull,
+      "--device-split-count", split, "-v"], client=client)
+print("stopped", file=out, flush=True)
+"""
+
+NODE_NAME = "smoke-gpu-node"
+SPLIT = 10                   # device_split_count, the plugin's default
+NODE_QUOTA_MB = 12288        # (i): the pod's gpumem ...
+NODE_SM_LIMIT = 50           # ... and gpucores
+# a CUDA context holds ~0.6 GB of the card (PERF.md); the plugin process
+# must not move the card's used memory by a fraction of that
+CONTEXT_MARGIN_MB = 256
+
+
+def smi(query: str) -> list:
+    """One ``nvidia-smi --query-gpu`` field per card (no units)."""
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader,"
+         "nounits"], check=True, capture_output=True, text=True,
+        timeout=60).stdout
+    return [line.strip() for line in out.strip().splitlines()]
+
+
+def compute_apps() -> int:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout
+    return len([line for line in out.splitlines() if line.strip()])
+
+
+class PluginChild:
+    """The device plugin process and its in-memory apiserver."""
+
+    def __init__(self, tmp: str):
+        self.sock_dir = os.path.join(tmp, "device-plugins")
+        self.shim_dir = os.path.join(tmp, "vgpu")
+        os.makedirs(self.sock_dir)
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith(("CUDA_", "LD_PRELOAD", "VGPU_"))}
+        env["PYTHONPATH"] = ROOT
+        self.errf = open(os.path.join(tmp, "plugin.err"), "w+")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", PLUGIN_CHILD, NODE_NAME, self.sock_dir,
+             self.shim_dir, str(SPLIT)],
+            env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=self.errf, text=True)
+
+    def err(self) -> str:
+        self.errf.seek(0)
+        return self.errf.read()[-4000:]
+
+    def ask(self, op: str, **args):
+        self.proc.stdin.write(json.dumps(dict(args, op=op)) + "\n")
+        self.proc.stdin.flush()
+        ready, _, _ = select.select([self.proc.stdout], [], [], 60)
+        line = self.proc.stdout.readline() if ready else ""
+        if not line:
+            raise SmokeFailure(f"plugin child gave no answer to {op}, rc "
+                               f"{self.proc.poll()}:\n{self.err()}")
+        return json.loads(line)
+
+    def stop(self) -> str:
+        try:
+            self.proc.stdin.write(json.dumps({"op": "stop"}) + "\n")
+            self.proc.stdin.flush()
+            out, _ = self.proc.communicate(timeout=60)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait(timeout=60)
+        check(self.proc.returncode == 0 and out.strip() == "stopped",
+              f"plugin child rc {self.proc.returncode}:\n{self.err()}")
+        return out
+
+
+def node_agent_phase(name: str, solo_img_s: float) -> dict:
+    """Phase (i): the device plugin enumerates the card through NVML,
+    advertises its replicas to a fake kubelet, reports the inventory, and
+    answers Allocate for a pod the script assigns as the scheduler would;
+    a case 1.1 child started with that response's env alone runs under
+    libvgpu.so at the granted quota and SM limit."""
+    import grpc
+
+    from vtpu_torch import api
+    from vtpu_torch.plugin import deviceplugin_pb2 as pb
+    from vtpu_torch.plugin import dp_grpc, runtime
+    from vtpu_torch.plugin.nvml import NvmlLib
+    from vtpu_torch.plugin.rm import replica_id
+    from vtpu_torch.util import codec, nodelock, podutil, types
+
+    # enumeration, in this process, against torch and nvidia-smi
+    start = t0 = time.perf_counter()
+    nvml = NvmlLib()
+    t1 = time.perf_counter()
+    chips = nvml.enumerate()
+    t2 = time.perf_counter()
+    nvml.close()
+    init_ms, enum_ms = (t1 - t0) * 1e3, (t2 - t1) * 1e3
+    check(len(chips) == torch.cuda.device_count() >= 1,
+          f"NVML sees {len(chips)} cards, torch "
+          f"{torch.cuda.device_count()}")
+    smi_mib, smi_uuid = smi("memory.total"), smi("uuid")
+    for i, chip in enumerate(chips):
+        props = torch.cuda.get_device_properties(i)
+        torch_uuid = "GPU-" + str(props.uuid)
+        check(chip.type == "NVIDIA-" + torch.cuda.get_device_name(i),
+              f"card {i}: NVML type {chip.type!r}, torch name "
+              f"{torch.cuda.get_device_name(i)!r}")
+        check(chip.hbm_mb == int(smi_mib[i]), f"card {i}: NVML "
+              f"{chip.hbm_mb} MiB, nvidia-smi {smi_mib[i]}")
+        check(chip.uuid == smi_uuid[i], f"card {i}: NVML uuid {chip.uuid}, "
+              f"nvidia-smi {smi_uuid[i]}")
+        check(chip.uuid == torch_uuid, f"card {i}: NVML uuid {chip.uuid}, "
+              f"torch {torch_uuid}")
+        for path in chip.device_paths + ["/dev/nvidiactl",
+                                         "/dev/nvidia-uvm"]:
+            check(os.path.exists(path), f"{path} missing")
+    cards = "; ".join(
+        f"{c.type}, {c.hbm_mb} MiB, {c.device_paths[0]}, NUMA {c.numa}, "
+        f"uuid {c.uuid}, as torch's and nvidia-smi's" for c in chips)
+    print(f"(i) NVML in this process (CUDA initialised): {len(chips)} "
+          f"card(s) in {enum_ms:.3f} ms (nvmlInit_v2 and binding "
+          f"{init_ms:.3f} ms): {cards}; on {name}", flush=True)
+
+    tmp = tempfile.mkdtemp(prefix="vgpu-smoke-node-")
+    registered = []
+
+    class FakeKubelet(dp_grpc.RegistrationServicer):
+        def Register(self, request, context):
+            registered.append(request)
+            return pb.Empty()
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    used0, apps0 = int(smi("memory.used")[0]), compute_apps()
+    kubelet = None
+    plugin = None
+    workload = None
+    try:
+        plugin = PluginChild(tmp)
+        kubelet = grpc.server(futures.ThreadPoolExecutor(max_workers=2))
+        dp_grpc.add_registration_servicer(kubelet, FakeKubelet())
+        kubelet.add_insecure_port(
+            f"unix://{plugin.sock_dir}/{dp_grpc.KUBELET_SOCKET}")
+        kubelet.start()
+        deadline = time.monotonic() + 120
+        annos = {}
+        while time.monotonic() < deadline and not (
+                registered and api.NODE_REGISTER_ANNO in annos):
+            time.sleep(0.1)
+            annos = plugin.ask("get_node")["metadata"]["annotations"]
+        check(bool(registered), f"no Register from the plugin:\n"
+              f"{plugin.err()}")
+        check(registered[0].resource_name == api.RESOURCE_GPU,
+              f"registered {registered[0].resource_name}")
+        sock = f"unix://{plugin.sock_dir}/{registered[0].endpoint}"
+
+        # advertisement
+        with grpc.insecure_channel(sock) as ch:
+            first = next(dp_grpc.DevicePluginStub(ch).ListAndWatch(
+                pb.Empty(), timeout=30))
+        ids = sorted(d.ID for d in first.devices)
+        check(ids == sorted(replica_id(c.uuid, r) for c in chips
+                            for r in range(SPLIT)), f"ListAndWatch {ids}")
+        check(all(d.health == "Healthy" for d in first.devices),
+              "an unhealthy replica")
+        inventory = codec.decode_node_devices(annos[api.NODE_REGISTER_ANNO])
+        check([(d.id, d.count, d.devmem, d.devcore, d.type, d.health)
+               for d in inventory] ==
+              [(c.uuid, SPLIT, c.hbm_mb, 100, c.type, True) for c in chips],
+              f"register annotation {annos[api.NODE_REGISTER_ANNO]}")
+
+        # the assignment the scheduler's filter and bind would leave
+        grant = types.ContainerDevice(uuid=chips[0].uuid,
+                                      usedmem=NODE_QUOTA_MB,
+                                      usedcores=NODE_SM_LIMIT)
+        pod_annos = podutil.device_annotations(NODE_NAME, [[grant]])
+        pod_annos[api.BIND_PHASE_ANNO] = types.BindPhase.ALLOCATING.value
+        pod_annos[api.BIND_TIME_ANNO] = str(time.time_ns())
+        plugin.ask("add_pod", pod={
+            "metadata": {"name": "smoke-pod", "namespace": "default",
+                         "uid": "smoke-uid", "annotations": pod_annos},
+            "spec": {"nodeName": NODE_NAME, "containers": [{
+                "name": "main", "resources": {"limits": {
+                    api.RESOURCE_GPU: 1, api.RESOURCE_MEM: NODE_QUOTA_MB,
+                    api.RESOURCE_CORES: NODE_SM_LIMIT}}}]},
+            "status": {"phase": "Pending"}})
+        plugin.ask("patch_node", annos={api.NODE_LOCK_ANNO:
+                                        nodelock.now_str()})
+
+        # Allocate, as kubelet calls it
+        with grpc.insecure_channel(sock) as ch:
+            stub = dp_grpc.DevicePluginStub(ch)
+            t0 = time.perf_counter()
+            resp = stub.Allocate(pb.AllocateRequest(container_requests=[
+                pb.ContainerAllocateRequest(
+                    devicesIDs=[replica_id(chips[0].uuid, 0)])]))
+            alloc_ms = (time.perf_counter() - t0) * 1e3
+        phase = plugin.ask("get_pod", name="smoke-pod")["metadata"][
+            "annotations"][api.BIND_PHASE_ANNO]
+        locked = api.NODE_LOCK_ANNO in plugin.ask("get_node")["metadata"][
+            "annotations"]
+        check(phase == "success" and not locked,
+              f"after Allocate: bind-phase {phase}, node locked {locked}")
+        (ctr,) = resp.container_responses
+        print(f"(i) Allocate over the plugin's socket: {alloc_ms:.3f} ms; "
+              f"bind-phase {phase}, node lock released; response env "
+              f"{dict(sorted(ctr.envs.items()))}, "
+              f"{len(ctr.mounts)} mounts, device nodes "
+              f"{sorted(d.host_path for d in ctr.devices)}; on {name}",
+              flush=True)
+
+        # the plugin process holds no CUDA context: it imported no torch,
+        # and the card's used memory and compute processes did not move
+        # (NVML itself maps libcuda.so at nvmlInit_v2 with this driver, so
+        # a mapping is no evidence of a context)
+        modules = plugin.ask("modules")["modules"]
+        cold = plugin.ask("nvml")
+        with open(f"/proc/{plugin.proc.pid}/maps") as f:
+            libcuda = sorted({line.split()[-1] for line in f
+                              if "libcuda" in line})
+        used1, apps1 = int(smi("memory.used")[0]), compute_apps()
+        print(f"(i) plugin process: NVML without CUDA in the process: "
+              f"nvmlInit_v2 and binding {cold['init_ms']:.3f} ms, "
+              f"enumeration {cold['enumerate_ms']:.3f} ms; modules of "
+              f"torch/jax/vtpu {modules}; "
+              f"card memory used {used0} -> {used1} MiB, compute "
+              f"processes {apps0} -> {apps1}; libcuda mapped "
+              f"{libcuda or 'no'}; on {name}", flush=True)
+        check(modules == [], f"the plugin imported {modules}")
+        check(used1 - used0 < CONTEXT_MARGIN_MB and apps1 == apps0,
+              "the plugin process took device memory or a context")
+
+        # the workload: a case 1.1 child with only the response's env and
+        # mounts applied (runtime.process_env: the host paths of the
+        # libvgpu.so and region mounts, CUDA_VISIBLE_DEVICES =
+        # NVIDIA_VISIBLE_DEVICES), over this machine's own environment
+        # with every CUDA_/NVIDIA_/LD_PRELOAD key of it removed. Nothing
+        # else is set by hand.
+        env = {k: v for k, v in os.environ.items() if not k.startswith(
+            ("CUDA_", "NVIDIA_", "LD_PRELOAD", "PYTORCH_CUDA_ALLOC_CONF"))}
+        env["PYTHONPATH"] = ROOT
+        env.update(runtime.process_env(ctr))
+        cache = env[api.ENV_SHARED_CACHE]
+        check(env["LD_PRELOAD"] == os.path.join(plugin.shim_dir,
+                                                "libvgpu.so"),
+              f"LD_PRELOAD {env.get('LD_PRELOAD')}")
+        workload = SmChild("(i) Allocate's pod", given=(env, cache))
+        q = workload.ask("quota")
+        run = workload.ask("run", seconds=SM_RUN_S)
+        share = run["img_s"] / solo_img_s
+        with workload.view() as view:
+            limit, core = view.hbm_limit(0), view.core_limit(0)
+            pids = [p.pid for p in view.procs()]
+        print(f"(i) case 1.1 started from the response alone: "
+              f"mem_get_info total {q['total']} B; past it "
+              f"\"{q['refused']}\", then the step ran (finite "
+              f"{q['finite_after']}); {run['img_s']:.1f} img/s for "
+              f"{run['wall_s']:.1f} s, {share:.3f}x the unthrottled "
+              f"{solo_img_s:.1f}; region at {cache}: limit {limit} B, SM "
+              f"limit {core}, slots {pids}; on {name}", flush=True)
+        check(q["total"] == NODE_QUOTA_MB * MiB,
+              f"mem_get_info total {q['total']}")
+        check(q["refused"] is not None and q["finite_after"],
+              "(i) allocation past the quota")
+        check(0.40 <= share <= 0.60, f"(i) ran at {share:.3f}x")
+        check(limit == NODE_QUOTA_MB * MiB and core == NODE_SM_LIMIT
+              and pids == [q["pid"]], "(i) region")
+        workload.close()   # checks the region is clean after the exit
+        workload = None
+        plugin.stop()
+        plugin = None
+    finally:
+        if workload is not None and workload.proc.poll() is None:
+            workload.proc.kill()
+            workload.proc.wait(timeout=60)
+        if plugin is not None and plugin.proc.poll() is None:
+            plugin.proc.kill()
+            plugin.proc.wait(timeout=60)
+        if kubelet is not None:
+            kubelet.stop(0)
+        shutil.rmtree(tmp, ignore_errors=True)
+    took = time.perf_counter() - start
+    print(f"(i) the node-agent phase took {took:.1f} s; on {name}",
+          flush=True)
+    return {"phase": "(i) node agent", "cards": len(chips),
+            "nvml_init_ms": init_ms, "nvml_enumerate_ms": enum_ms,
+            "plugin_nvml_init_ms": cold["init_ms"],
+            "plugin_nvml_enumerate_ms": cold["enumerate_ms"],
+            "phase_s": took,
+            "allocate_ms": alloc_ms,
+            "quota_bytes": q["total"], "img_s": run["img_s"],
+            "unthrottled_img_s": solo_img_s, "share": share,
+            "plugin_used_mib_delta": used1 - used0,
+            "plugin_libcuda_mapped": bool(libcuda)}
+
+
 NATIVE = [
     {"name": "libvgpu.so", "route": "gcc", "source":
      "vtpu_torch/csrc/libvgpu.c", "replaces": "lib/vtpu/libvtpu.c:1007",
@@ -1027,6 +1426,9 @@ NATIVE = [
     {"name": "libvgpucore.so", "route": "gcc", "source":
      "vtpu_torch/csrc/shared_region.c", "replaces":
      "lib/vtpu/shared_region.c:476"},
+    {"name": "libnvidia-ml.so.1 (mock, CPU tests only)", "route": "gcc",
+     "source": "vtpu_torch/csrc/mock_nvml.c", "replaces":
+     "vtpu/plugin/tpulib.py:65"},
 ]
 
 
@@ -1068,6 +1470,9 @@ def main() -> int:
         phases.append(dict(quota_phase(name, "1.2", quota, alloc_conf),
                            max_memory_reserved_alone=peak))
     phases += compute_phases(name)
+    (solo,) = [p["unthrottled_img_s"] for p in phases
+               if p["phase"] == "(c) case 1.1 at 50%"]
+    phases.append(node_agent_phase(name, solo))
     print(json.dumps({"card": name, "phases": phases}), flush=True)
     print(json.dumps({"kernels": [], "native": NATIVE}), flush=True)
     print(json.dumps({"ok": True, "device": {

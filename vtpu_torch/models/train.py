@@ -254,6 +254,10 @@ def _rank_entry(rank: int, fn: Callable, n: int, device_type: str,
                             world_size=n, rank=rank,
                             timeout=timedelta(seconds=timeout_s))
     try:
+        # every rank joined before any runs: a rank whose fn ends (or
+        # raises) at once must not tear its group down while a peer is
+        # still connecting, which fails the peer's init instead
+        dist.barrier()
         fn(rank, *args)
     finally:
         dist.destroy_process_group()

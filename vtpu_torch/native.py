@@ -12,6 +12,12 @@ missing or older than one of its sources, and a failed build raises.
 - ``libcuda.so.1`` under ``_build/mock_cuda/``: a stand-in driver
   (``mock_cuda.c``) for tests on machines without a GPU; put the directory
   on ``LD_LIBRARY_PATH``.
+- ``libnvidia-ml.so.1`` under ``_build/mock_nvml/``: a stand-in NVML
+  (``mock_nvml.c``) serving a JSON fixture of cards (``MOCK_NVML_FIXTURE``).
+
+:func:`preload_file` also writes ``_build/ld.so.preload``, the file the
+device plugin installs on the host and mounts over a container's
+``/etc/ld.so.preload``: one line naming the interposer's in-container path.
 
 Builds take a file lock, so concurrent processes (test workers) build each
 library once, and each output is renamed into place whole.
@@ -24,6 +30,8 @@ import os
 import shutil
 import subprocess
 from typing import Dict, List, Tuple
+
+from . import api
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
@@ -43,6 +51,8 @@ TARGETS: Dict[str, Tuple[List[str], List[str], List[str]]] = {
                    _REGION[1:] + ["cuda_min.h"], ["-ldl"]),
     os.path.join("mock_cuda", "libcuda.so.1"): (
         ["mock_cuda.c"], ["cuda_min.h"], ["-Wl,-soname,libcuda.so.1"]),
+    os.path.join("mock_nvml", "libnvidia-ml.so.1"): (
+        ["mock_nvml.c"], [], ["-Wl,-soname,libnvidia-ml.so.1"]),
 }
 
 
@@ -100,6 +110,30 @@ def interposer() -> str:
 def mock_cuda_dir() -> str:
     """Directory holding the mock ``libcuda.so.1``, for LD_LIBRARY_PATH."""
     return os.path.dirname(build(os.path.join("mock_cuda", "libcuda.so.1")))
+
+
+def mock_nvml_library() -> str:
+    """The mock ``libnvidia-ml.so.1``."""
+    return build(os.path.join("mock_nvml", "libnvidia-ml.so.1"))
+
+
+def preload_file() -> str:
+    """``_build/ld.so.preload``: the interposer's in-container path, the
+    content of the file mounted over a container's /etc/ld.so.preload."""
+    out = os.path.join(BUILD, "ld.so.preload")
+    want = api.CONTAINER_SHIM_PATH + "\n"
+    try:
+        with open(out) as f:
+            if f.read() == want:
+                return out
+    except FileNotFoundError:
+        pass
+    os.makedirs(BUILD, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
+        f.write(want)
+    os.replace(tmp, out)
+    return out
 
 
 def build_all() -> Dict[str, str]:
