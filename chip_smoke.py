@@ -57,7 +57,8 @@ built:
        region's launch count over one case 1.1 step is at least the number
        of kernels ``torch.profiler`` traces for it;
    (b) unthrottled cost: case 1.1 and case 1.2 ms/step alone, under
-       ``libvgpu.so`` with no SM limit and with ``CUDA_DEVICE_SM_LIMIT=100``;
+       ``libvgpu.so`` with no SM limit and with ``CUDA_DEVICE_SM_LIMIT=100``
+       (where each launch's device time is still measured and charged);
        case 1.1 within 3% of alone (case 1.2's printed: host-bound, it
        spreads between processes);
    (c) solo throttle: case 1.1 at a 50% limit for 12 s, each step
@@ -102,7 +103,27 @@ built:
    runs on, runs at 0.40-0.60x phase (c)'s unthrottled img/s for 12 s, and
    its region at the mount's host path carries the limit, the SM limit 50
    and its slot, and is clean after it exits;
-9. prints the port's native components (the JAX package has no TPU kernel,
+9. phase (j), the node monitor (vtpu_torch/monitor) over phase (i)'s
+   plugin: the monitor runs in a child through its entry point
+   (``vtpu_torch.monitor.__main__.main``, ``--sweep-interval 1``) with an
+   in-memory apiserver, over the plugin's containers directory, and pods
+   are case 1.1 ``--sm-child`` children started from Allocate responses
+   (``gpumem`` 12288 MiB). Pod H alone (priority 0, ``gpucores`` 50) is
+   released (``utilization_switch`` 1) within 3 sweeps and runs at >= 0.8x
+   phase (c)'s unthrottled img/s; the memory gauges match its quota, its
+   ``memory_reserved()`` (within 256 MiB), NVML's capacity and the pods'
+   sum; ``HostCoreUtilization`` over two scrapes 10 s apart is 0.8-1.1x
+   its busy share (CUDA-event step time over wall time), and so it is for
+   pod U with no SM limit alone. Pod L (priority 1, ``gpucores`` 50) joins
+   while H runs: both throttled and L blocked within 3 sweeps, L's region
+   launches stand still for 5 s, H runs at 0.40-0.60x. H exits: L is
+   unblocked within 3 sweeps and, once H's directory is gone, released
+   and at >= 0.8x. Pod F alone under ``GPU_CORE_UTILIZATION_POLICY=force``
+   stays throttled at 0.40-0.60x. ``/nodeinfo`` lists each live pod with
+   its limit and usage; the sweep latency is printed; the monitor took no
+   context and no device memory; every region is clean after its pod
+   exits; the phase takes under 120 s;
+10. prints the port's native components (the JAX package has no TPU kernel,
    so ``kernels`` is empty) and, last, ``{"ok": true, "device": ...}``.
 
 Any failed phase ends the run with a non-zero exit and no final line. So
@@ -850,9 +871,13 @@ def sm_child() -> None:
                 "finite_after": bool(torch.isfinite(out).all()),
                 "pid": os.getpid()}
 
+    def op_mem(cmd):
+        torch.cuda.synchronize()
+        return {"reserved": torch.cuda.memory_reserved(), "pid": os.getpid()}
+
     ops = {"time": op_time, "profile": op_profile, "run": op_run,
            "graph": op_graph, "step": op_step, "host": op_host,
-           "quota": op_quota}
+           "quota": op_quota, "mem": op_mem}
     for line in sys.stdin:
         cmd = json.loads(line)
         try:
@@ -1186,12 +1211,14 @@ class PluginChild:
         return out
 
 
-def node_agent_phase(name: str, solo_img_s: float) -> dict:
+def node_agent_phase(name: str, solo_img_s: float,
+                     step_ms: float) -> list:
     """Phase (i): the device plugin enumerates the card through NVML,
     advertises its replicas to a fake kubelet, reports the inventory, and
     answers Allocate for a pod the script assigns as the scheduler would;
     a case 1.1 child started with that response's env alone runs under
-    libvgpu.so at the granted quota and SM limit."""
+    libvgpu.so at the granted quota and SM limit. Then phase (j), the node
+    monitor, over the same plugin's pods."""
     import grpc
 
     from vtpu_torch import api
@@ -1381,6 +1408,12 @@ def node_agent_phase(name: str, solo_img_s: float) -> dict:
               and pids == [q["pid"]], "(i) region")
         workload.close()   # checks the region is clean after the exit
         workload = None
+        took = time.perf_counter() - start
+        # the exited pod's region directory goes, as the monitor's GC
+        # removes it 300 s after the pod is deleted
+        shutil.rmtree(os.path.dirname(cache))
+        monitor = monitor_phase(name, solo_img_s, step_ms, plugin, sock,
+                                chips[0], tmp)
         plugin.stop()
         plugin = None
     finally:
@@ -1393,10 +1426,9 @@ def node_agent_phase(name: str, solo_img_s: float) -> dict:
         if kubelet is not None:
             kubelet.stop(0)
         shutil.rmtree(tmp, ignore_errors=True)
-    took = time.perf_counter() - start
     print(f"(i) the node-agent phase took {took:.1f} s; on {name}",
           flush=True)
-    return {"phase": "(i) node agent", "cards": len(chips),
+    return [{"phase": "(i) node agent", "cards": len(chips),
             "nvml_init_ms": init_ms, "nvml_enumerate_ms": enum_ms,
             "plugin_nvml_init_ms": cold["init_ms"],
             "plugin_nvml_enumerate_ms": cold["enumerate_ms"],
@@ -1405,7 +1437,473 @@ def node_agent_phase(name: str, solo_img_s: float) -> dict:
             "quota_bytes": q["total"], "img_s": run["img_s"],
             "unthrottled_img_s": solo_img_s, "share": share,
             "plugin_used_mib_delta": used1 - used0,
-            "plugin_libcuda_mapped": bool(libcuda)}
+            "plugin_libcuda_mapped": bool(libcuda)}, monitor]
+
+
+# ------------------------------------------------------ (j) the node monitor.
+# The monitor runs in its own process through its entry point
+# (vtpu_torch.monitor.__main__.main) with an in-memory apiserver this script
+# writes through the child's stdin/stdout, over phase (i)'s plugin's
+# containers directory. It holds no CUDA context: NVML only.
+
+MONITOR_CHILD = r"""
+import json, os, signal, sys, threading, time
+from vtpu_torch.monitor import daemon
+from vtpu_torch.monitor.__main__ import main
+from vtpu_torch.util.client import FakeKubeClient
+
+node, containers, metrics_port, info_port = sys.argv[1:5]
+# each sweep's latency, for the report (the histogram's buckets are coarse)
+sweeps = []
+sweep_once = daemon.MonitorDaemon.sweep_once
+
+
+def timed(self):
+    t0 = time.perf_counter()
+    sweep_once(self)
+    sweeps.append(time.perf_counter() - t0)
+
+
+daemon.MonitorDaemon.sweep_once = timed
+client = FakeKubeClient()
+client.add_node(node)
+out = sys.stdout
+sys.stdout = sys.stderr
+
+
+def serve():
+    for line in sys.stdin:
+        cmd = json.loads(line)
+        op = cmd["op"]
+        if op == "stop":
+            os.kill(os.getpid(), signal.SIGINT)
+            return
+        if op == "add_pod":
+            reply = client.add_pod(cmd["pod"])
+        elif op == "delete_pod":
+            client.delete_pod("default", cmd["name"])
+            reply = {}
+        elif op == "sweeps":
+            reply = {"sweeps": list(sweeps)}
+        else:
+            reply = {"modules": sorted(
+                m for m in sys.modules
+                if m.split(".")[0] in ("torch", "jax", "vtpu"))}
+        out.write(json.dumps(reply) + "\n")
+        out.flush()
+
+
+threading.Thread(target=serve, daemon=True).start()
+main(["--containers-dir", containers, "--node-name", node,
+      "--sweep-interval", "1", "--metrics-port", metrics_port,
+      "--info-port", info_port], client=client)
+print("stopped", file=out, flush=True)
+"""
+
+SWEEP_S = 1.0          # the monitor's sweep interval in (j)
+SWEEPS_TO_ACT = 3      # what the monitor must do, it does within 3 sweeps
+UTIL_WINDOW_S = 10.0   # two scrapes this far apart give HostCoreUtilization
+MONITOR_PHASE_S = 120.0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class MonitorChild:
+    """The node monitor process and its in-memory apiserver."""
+
+    def __init__(self, tmp: str, containers: str):
+        self.metrics_port, self.info_port = free_port(), free_port()
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith(("CUDA_", "LD_PRELOAD", "VGPU_"))}
+        env["PYTHONPATH"] = ROOT
+        self.errf = open(os.path.join(tmp, "monitor.err"), "w+")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", MONITOR_CHILD, NODE_NAME, containers,
+             str(self.metrics_port), str(self.info_port)],
+            env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=self.errf, text=True)
+
+    def err(self) -> str:
+        self.errf.seek(0)
+        return self.errf.read()[-4000:]
+
+    def ask(self, op: str, **args):
+        self.proc.stdin.write(json.dumps(dict(args, op=op)) + "\n")
+        self.proc.stdin.flush()
+        ready, _, _ = select.select([self.proc.stdout], [], [], 60)
+        line = self.proc.stdout.readline() if ready else ""
+        if not line:
+            raise SmokeFailure(f"monitor child gave no answer to {op}, rc "
+                               f"{self.proc.poll()}:\n{self.err()}")
+        return json.loads(line)
+
+    def get(self, port: int, path: str) -> bytes:
+        import urllib.request
+
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=10) as resp:
+            return resp.read()
+
+    def wait_ready(self, timeout_s: float = 60.0) -> None:
+        import urllib.error
+
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            try:
+                self.get(self.info_port, "/healthz")
+                self.get(self.metrics_port, "/metrics")
+                return
+            except (urllib.error.URLError, ConnectionError, OSError):
+                check(self.proc.poll() is None,
+                      f"monitor child exited:\n{self.err()}")
+                time.sleep(0.2)
+        raise SmokeFailure(f"monitor not serving:\n{self.err()}")
+
+    def scrape(self) -> dict:
+        """family -> {frozenset(labels): value}, one GET /metrics"""
+        from prometheus_client.parser import text_string_to_metric_families
+
+        text = self.get(self.metrics_port, "/metrics").decode()
+        return {f.name: {frozenset(s.labels.items()): s.value
+                         for s in f.samples}
+                for f in text_string_to_metric_families(text)}
+
+    def nodeinfo(self) -> dict:
+        return json.loads(self.get(self.info_port, "/nodeinfo"))
+
+    def stop(self) -> None:
+        try:
+            self.proc.stdin.write(json.dumps({"op": "stop"}) + "\n")
+            self.proc.stdin.flush()
+            out, _ = self.proc.communicate(timeout=60)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait(timeout=60)
+        check(self.proc.returncode == 0 and out.strip() == "stopped",
+              f"monitor child rc {self.proc.returncode}:\n{self.err()}")
+
+
+def card_gauge(fams: dict, family: str, uuid: str) -> float:
+    (value,) = [v for labels, v in fams[family].items()
+                if dict(labels)["deviceuuid"] == uuid]
+    return value
+
+
+def pod_gauge(fams: dict, family: str, uid: str) -> float:
+    (value,) = [v for labels, v in fams[family].items()
+                if dict(labels)["poduid"] == uid]
+    return value
+
+
+def nvml_utilization(uuid: str):
+    """NVML's own utilization of the card, in percent (printed beside
+    HostCoreUtilization, not gated)."""
+    import ctypes
+
+    from vtpu_torch.plugin.nvml import NvmlLib
+
+    class Rates(ctypes.Structure):
+        _fields_ = [("gpu", ctypes.c_uint), ("memory", ctypes.c_uint)]
+
+    lib = NvmlLib()
+    try:
+        lib.enumerate()
+        rates = Rates()
+        rc = lib._lib.nvmlDeviceGetUtilizationRates(
+            ctypes.c_void_p(lib.handle(uuid)), ctypes.byref(rates))
+        return rates.gpu if rc == 0 else f"NVML error {rc}"
+    finally:
+        lib.close()
+
+
+def monitor_phase(name: str, solo_img_s: float, step_ms: float, plugin,
+                  sock: str, chip, tmp: str) -> dict:
+    """Phase (j): the node monitor over phase (i)'s plugin. Pods are case
+    1.1 --sm-children started from Allocate responses (gpumem 12288 MiB);
+    the monitor writes their feedback plane, exports the reference's
+    families and serves /nodeinfo. Steps:
+
+    1. pod H alone (priority 0, gpucores 50): released within 3 sweeps and
+       runs at >= 0.8x unthrottled; the memory gauges; HostCoreUtilization
+       over two scrapes 10 s apart within 0.8-1.1x H's busy share (its
+       CUDA-event step time over wall time);
+    2. pod U with no gpucores alone: the same utilization bound (busy time
+       is charged on a card with no SM limit);
+    3. pod L (priority 1, gpucores 50) joins while H runs: both throttled
+       and L blocked within 3 sweeps; L's launches stand still for 5 s and
+       H runs at 0.40-0.60x;
+    4. H exits: L unblocked within 3 sweeps; once H's directory is gone,
+       released and at >= 0.8x;
+    5. pod F alone under GPU_CORE_UTILIZATION_POLICY=force: never released,
+       0.40-0.60x;
+    6. the monitor's /nodeinfo, sweep latency, no context and no device
+       memory; every region clean after its pod exits; under 120 s."""
+    import grpc
+
+    from vtpu_torch import api
+    from vtpu_torch.plugin import deviceplugin_pb2 as pb
+    from vtpu_torch.plugin import dp_grpc, runtime
+    from vtpu_torch.plugin.rm import replica_id
+    from vtpu_torch.util import nodelock, podutil, types
+
+    start = time.perf_counter()
+    containers = os.path.join(plugin.shim_dir, "containers")
+    quota = NODE_QUOTA_MB * MiB
+    pods = {}
+    replicas = iter(range(1, SPLIT))
+
+    def allocate(label: str, cores: int, **env_extra) -> SmChild:
+        """The pod, assigned as the scheduler would, allocated over the
+        plugin's socket and started from the response (its container env
+        adds only CUDA_TASK_PRIORITY and the policy, as a pod spec's
+        would)."""
+        pod_name, uid = f"smoke-{label.lower()}", f"smoke-uid-{label}"
+        grant = types.ContainerDevice(uuid=chip.uuid, usedmem=NODE_QUOTA_MB,
+                                      usedcores=cores)
+        annos = podutil.device_annotations(NODE_NAME, [[grant]])
+        annos[api.BIND_PHASE_ANNO] = types.BindPhase.ALLOCATING.value
+        annos[api.BIND_TIME_ANNO] = str(time.time_ns())
+        pod = {"metadata": {"name": pod_name, "namespace": "default",
+                            "uid": uid, "annotations": annos},
+               "spec": {"nodeName": NODE_NAME, "containers": [{
+                   "name": "main", "resources": {"limits": {
+                       api.RESOURCE_GPU: 1, api.RESOURCE_MEM: NODE_QUOTA_MB,
+                       api.RESOURCE_CORES: cores}}}]},
+               "status": {"phase": "Running"}}
+        plugin.ask("add_pod", pod=pod)
+        monitor.ask("add_pod", pod=pod)
+        plugin.ask("patch_node", annos={api.NODE_LOCK_ANNO:
+                                        nodelock.now_str()})
+        with grpc.insecure_channel(sock) as ch:
+            resp = dp_grpc.DevicePluginStub(ch).Allocate(pb.AllocateRequest(
+                container_requests=[pb.ContainerAllocateRequest(
+                    devicesIDs=[replica_id(chip.uuid, next(replicas))])]))
+        (ctr,) = resp.container_responses
+        env = {k: v for k, v in os.environ.items() if not k.startswith(
+            ("CUDA_", "NVIDIA_", "LD_PRELOAD", "PYTORCH_CUDA_ALLOC_CONF"))}
+        env["PYTHONPATH"] = ROOT
+        env.update(runtime.process_env(ctr))
+        env.update({k: str(v) for k, v in env_extra.items()})
+        child = SmChild(f"(j) pod {label}", given=(env,
+                                                   env[api.ENV_SHARED_CACHE]))
+        child.uid, child.pod_name = uid, pod_name
+        pods[label] = child
+        return child
+
+    def gone(label: str) -> None:
+        """The exited pod deleted, and its region directory with it (what
+        the monitor's GC does 300 s after the deletion)."""
+        child = pods.pop(label)
+        monitor.ask("delete_pod", name=child.pod_name)
+        shutil.rmtree(os.path.dirname(child.cache))
+
+    def feedback(child: SmChild):
+        with child.view() as view:
+            return (view.recent_kernel, view.utilization_switch,
+                    view.total_launches())
+
+    def within_sweeps(cond, what: str) -> float:
+        """Seconds until cond() held; fails past SWEEPS_TO_ACT sweeps
+        (and one sweep of slack for the interposer's 100 ms publish)."""
+        t0 = time.monotonic()
+        while not cond():
+            check(time.monotonic() - t0 <= (SWEEPS_TO_ACT + 1) * SWEEP_S,
+                  f"(j) {what}: not within {SWEEPS_TO_ACT} sweeps")
+            time.sleep(0.05)
+        return time.monotonic() - t0
+
+    def utilization(child: SmChild, seconds: float):
+        """HostCoreUtilization over two scrapes UTIL_WINDOW_S apart while
+        child runs case 1.1 alone; (gauge share, the child's busy share,
+        the run, NVML's utilization meanwhile)"""
+        child.send("run", seconds=seconds)
+        time.sleep(0.5)
+        monitor.scrape()
+        t0 = time.monotonic()
+        time.sleep(UTIL_WINDOW_S / 2)
+        nvml = nvml_utilization(chip.uuid)
+        time.sleep(max(0.0, t0 + UTIL_WINDOW_S - time.monotonic()))
+        gauge = card_gauge(monitor.scrape(), "HostCoreUtilization",
+                           chip.uuid) / 100.0
+        run = child.read()
+        busy = run["calls"] * step_ms / 1e3 / run["wall_s"]
+        return gauge, busy, run, nvml
+
+    used0, apps0 = int(smi("memory.used")[0]), compute_apps()
+    monitor = MonitorChild(tmp, containers)
+    try:
+        monitor.wait_ready()
+        time.sleep(3 * SWEEP_S)
+        used1, apps1 = int(smi("memory.used")[0]), compute_apps()
+        modules = monitor.ask("modules")["modules"]
+        check(modules == [], f"(j) the monitor imported {modules}")
+        check(used1 - used0 < CONTEXT_MARGIN_MB and apps1 == apps0,
+              f"(j) the monitor took device memory ({used0} -> {used1} "
+              f"MiB) or a context ({apps0} -> {apps1} processes)")
+
+        # 1. pod H alone
+        h = allocate("H", NODE_SM_LIMIT, CUDA_TASK_PRIORITY=0)
+        h.ask("step")
+        lift_s = within_sweeps(lambda: feedback(h)[1] == 1,
+                               "H alone released")
+        gauge, busy, run, nvml = utilization(h, UTIL_WINDOW_S + 1.5)
+        share = run["img_s"] / solo_img_s
+        reserved = h.ask("mem")["reserved"]
+        time.sleep(1.5 * SWEEP_S)
+        fams = monitor.scrape()
+        usage = pod_gauge(fams, "vGPU_device_memory_usage_in_bytes", h.uid)
+        limit = pod_gauge(fams, "vGPU_device_memory_limit_in_bytes", h.uid)
+        capacity = card_gauge(fams, "HostGPUMemoryCapacity", chip.uuid)
+        host_usage = card_gauge(fams, "HostGPUMemoryUsage", chip.uuid)
+        pod_usage = sum(fams["vGPU_device_memory_usage_in_bytes"].values())
+        print(f"(j) 1. pod H alone (priority 0, gpucores 50): released "
+              f"(utilization_switch 1) {lift_s:.2f} s after its first step; "
+              f"{run['img_s']:.1f} img/s, {share:.3f}x the unthrottled "
+              f"{solo_img_s:.1f}; HostCoreUtilization over "
+              f"{UTIL_WINDOW_S:.0f} s {gauge:.4f} against its busy share "
+              f"{busy:.4f} ({gauge / busy:.3f}x; NVML utilization {nvml}%); "
+              f"usage {usage:.0f} B vs memory_reserved {reserved} B (+"
+              f"{(usage - reserved) / MiB:.1f} MiB), limit {limit:.0f} B, "
+              f"card capacity {capacity:.0f} B, HostGPUMemoryUsage "
+              f"{host_usage:.0f} B; on {name}", flush=True)
+        check(share >= 0.8, f"(j) H alone ran at {share:.3f}x")
+        check(0.8 <= gauge / busy <= 1.1,
+              f"(j) H's utilization {gauge:.4f} vs busy {busy:.4f}")
+        check(limit == quota, f"(j) limit gauge {limit}")
+        check(0 <= usage - reserved <= RESERVED_MARGIN,
+              f"(j) usage gauge {usage} vs reserved {reserved}")
+        check(capacity == chip.hbm_mb * MiB, f"(j) capacity {capacity}")
+        check(host_usage == pod_usage, f"(j) HostGPUMemoryUsage "
+              f"{host_usage} vs the pods' {pod_usage}")
+        result = {"phase": "(j) node monitor", "h_release_s": lift_s,
+                  "h_share": share, "h_util_gauge": gauge, "h_busy": busy,
+                  "h_nvml_util": nvml, "h_usage_minus_reserved":
+                  usage - reserved}
+
+        # 2. pod U with no gpucores, alone (H idle)
+        u = allocate("U", 0)
+        u.ask("step")
+        gauge, busy, run, nvml = utilization(u, UTIL_WINDOW_S + 1.5)
+        print(f"(j) 2. pod U with no SM limit alone: HostCoreUtilization "
+              f"over {UTIL_WINDOW_S:.0f} s {gauge:.4f} against its busy "
+              f"share {busy:.4f} ({gauge / busy:.3f}x; NVML utilization "
+              f"{nvml}%); {run['img_s']:.1f} img/s; on {name}", flush=True)
+        check(0.8 <= gauge / busy <= 1.1,
+              f"(j) U's utilization {gauge:.4f} vs busy {busy:.4f}")
+        result.update(u_util_gauge=gauge, u_busy=busy, u_nvml_util=nvml)
+        u.close()
+        gone("U")
+
+        # 3. pod L joins while H runs
+        lo = allocate("L", NODE_SM_LIMIT, CUDA_TASK_PRIORITY=1)
+        lo.ask("step")
+        within_sweeps(lambda: feedback(h)[1] == 0 and feedback(lo)[1] == 0,
+                      "H and L both throttled")
+        h.send("run", seconds=12.0)
+        block_s = within_sweeps(lambda: feedback(lo)[0] == FEEDBACK_BLOCK,
+                                "L blocked while H runs")
+        lo.send("run", seconds=4.0)
+        time.sleep(0.5)
+        held = feedback(lo)[2]
+        info = {e["entry"]: e for e in monitor.nodeinfo()["containers"]}
+        time.sleep(5.0)
+        still = feedback(lo)[2]
+        h_run = h.read()
+        h_share = h_run["img_s"] / solo_img_s
+        live = {os.path.basename(os.path.dirname(c.cache)): c
+                for c in pods.values()}
+        print(f"(j) 3. pod L (priority 1) joins while H runs: both "
+              f"throttled, L blocked {block_s:.2f} s after H started; L's "
+              f"region launches {held} -> {still} over 5 s; H at "
+              f"{h_share:.3f}x; /nodeinfo "
+              f"{[(e, info[e]['pod_name'], info[e]['hbm_limit'], info[e]['hbm_used']) for e in sorted(info)]}; "
+              f"on {name}", flush=True)
+        check(still == held, f"(j) L launched while blocked: {held} -> "
+              f"{still}")
+        check(0.40 <= h_share <= 0.60, f"(j) H beside L at {h_share:.3f}x")
+        check(sorted(info) == sorted(live), f"(j) /nodeinfo lists "
+              f"{sorted(info)}, live {sorted(live)}")
+        for entry, child in live.items():
+            check(info[entry]["pod_name"] == child.pod_name
+                  and info[entry]["hbm_limit"] == [quota]
+                  and info[entry]["hbm_used"][0] > 0,
+                  f"(j) /nodeinfo entry {info[entry]}")
+        result.update(l_block_s=block_s, h_share_beside_l=h_share)
+
+        # 4. H exits
+        h.close()
+        unblock_s = within_sweeps(
+            lambda: feedback(lo)[0] != FEEDBACK_BLOCK, "L unblocked")
+        lo.read()
+        moved = feedback(lo)[2]
+        gone("H")
+        release_s = within_sweeps(lambda: feedback(lo)[1] == 1,
+                                  "L alone released")
+        l_share = lo.ask("run", seconds=4.0)["img_s"] / solo_img_s
+        print(f"(j) 4. H exits: L unblocked within {unblock_s:.2f} s, its "
+              f"region launches {still} -> {moved}; with H's directory "
+              f"gone, released within {release_s:.2f} s; L at "
+              f"{l_share:.3f}x; on {name}", flush=True)
+        check(moved > still, "(j) L did not launch after H exited")
+        check(l_share >= 0.8, f"(j) L alone ran at {l_share:.3f}x")
+        result.update(l_unblock_s=unblock_s, l_release_s=release_s,
+                      l_share=l_share)
+        lo.close()
+        gone("L")
+
+        # 5. pod F alone under the force policy
+        f = allocate("F", NODE_SM_LIMIT,
+                     GPU_CORE_UTILIZATION_POLICY="force")
+        f.ask("step")
+        f.send("run", seconds=8.0)
+        switches = set()
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < 7.0:
+            switches.add(feedback(f)[1])
+            time.sleep(0.25)
+        f_share = f.read()["img_s"] / solo_img_s
+        print(f"(j) 5. pod F alone under the force policy: "
+              f"utilization_switch {sorted(switches)} over 7 s, "
+              f"{f_share:.3f}x; on {name}", flush=True)
+        check(switches == {0}, f"(j) F released: {switches}")
+        check(0.40 <= f_share <= 0.60, f"(j) F at {f_share:.3f}x")
+        result["f_share"] = f_share
+        f.close()
+        gone("F")
+
+        # 6. the monitor process
+        sweeps = sorted(monitor.ask("sweeps")["sweeps"])
+        p50, top = sweeps[len(sweeps) // 2] * 1e3, sweeps[-1] * 1e3
+        used2, apps2 = int(smi("memory.used")[0]), compute_apps()
+        took = time.perf_counter() - start
+        print(f"(j) 6. the monitor: {len(sweeps)} sweeps, latency p50 "
+              f"{p50:.3f} ms, max {top:.3f} ms; card memory used {used0} -> "
+              f"{used1} MiB with the monitor alone ({used2} at the end), "
+              f"compute processes {apps0} -> {apps1}; no torch/jax/vtpu "
+              f"module; every region clean after its pod exited; the phase "
+              f"took {took:.1f} s; on {name}", flush=True)
+        check(took < MONITOR_PHASE_S, f"(j) took {took:.1f} s")
+        result.update(sweeps=len(sweeps), sweep_p50_ms=p50,
+                      sweep_max_ms=top, monitor_used_mib_delta=used1 - used0,
+                      phase_s=took)
+        monitor.stop()
+        monitor = None
+    finally:
+        for child in pods.values():
+            if child.proc.poll() is None:
+                child.proc.kill()
+                child.proc.wait(timeout=60)
+        if monitor is not None and monitor.proc.poll() is None:
+            monitor.proc.kill()
+            monitor.proc.wait(timeout=60)
+    return result
 
 
 NATIVE = [
@@ -1422,7 +1920,8 @@ NATIVE = [
                "cuLaunchCooperativeKernel", "cuLaunchCooperativeKernel_ptsz",
                "cuGraphLaunch", "cuGraphLaunch_ptsz", "cuMemHostAlloc",
                "cuMemAllocHost_v2", "cuMemFreeHost", "cuMemHostRegister_v2",
-               "cuMemHostUnregister"]},
+               "cuMemHostUnregister", "cuCtxSynchronize",
+               "cuStreamSynchronize", "cuStreamSynchronize_ptsz"]},
     {"name": "libvgpucore.so", "route": "gcc", "source":
      "vtpu_torch/csrc/shared_region.c", "replaces":
      "lib/vtpu/shared_region.c:476"},
@@ -1472,7 +1971,9 @@ def main() -> int:
     phases += compute_phases(name)
     (solo,) = [p["unthrottled_img_s"] for p in phases
                if p["phase"] == "(c) case 1.1 at 50%"]
-    phases.append(node_agent_phase(name, solo))
+    (step_ms,) = [p["no SM limit"] for p in phases
+                  if p["phase"] == "(b) case 1.1 unthrottled cost"]
+    phases += node_agent_phase(name, solo, step_ms)
     print(json.dumps({"card": name, "phases": phases}), flush=True)
     print(json.dumps({"kernels": [], "native": NATIVE}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -108,6 +108,14 @@ CHILD = textwrap.dedent(r"""
         out(n=n, mock=cu.mock_cuda_launches())
         if args[3:] == ["wait"]:
             sys.stdin.readline()
+    elif mode == "long":  # one kernel, then a sync and a flush on a line
+        assert kernel() == 0
+        out(launched=True)
+        sys.stdin.readline()
+        ctx_sync()
+        vg.vgpu_flush_launches()
+        out(done=True)
+        sys.stdin.readline()
     elif mode == "percore":  # MS per device, as shim_test percore
         counts = []
         for dev in ("0", "1"):
@@ -587,3 +595,74 @@ def test_disable_control_passes_launches_through(tmp_path, libs):
     assert not got["off"]["hooked"] and got["free"]["hooked"]
     assert got["off"]["n"] >= 0.8 * got["free"]["n"], got
     assert not os.path.exists(runs["off"][1])
+
+
+def test_unlimited_launches_are_timed_like_the_jax_shim(tmp_path, libs,
+                                                       jax_shim):
+    """With no SM limit, the interposer times every launch as the JAX shim
+    times every execute: 1 ms kernels, synchronised, for 1.5 s, beside the
+    JAX shim's burn with no limit on 1 ms executes. Both regions, read
+    through the JAX RegionView while their processes live, hold busy_ns
+    within 0.9-1.25x their launches x 1 ms (the JAX shim charges dispatch
+    to completion, ~1.1x here)."""
+    cache = tmp_path / "jax.cache"
+    env = dict(os.environ, LIBVTPU_SO=os.path.join(jax_shim, "libvtpu.so"),
+               VTPU_REAL_LIBTPU_PATH=os.path.join(jax_shim, "mock_pjrt.so"),
+               TPU_DEVICE_MEMORY_LIMIT="1g",
+               TPU_DEVICE_MEMORY_SHARED_CACHE=str(cache),
+               MOCK_PJRT_EXEC_NS=str(MS), MOCK_PJRT_OUT_BYTES="0")
+    env.pop("TPU_DEVICE_TENSORCORE_LIMIT", None)
+    jax = subprocess.Popen([os.path.join(jax_shim, "shim_test"), "burn",
+                            "1500"], env=env, stdout=subprocess.PIPE,
+                           text=True, cwd=jax_shim)
+    penv, pcache = child_env(tmp_path, "unlimited")
+    port = spawn(penv, "burn", 1.5, 0, "sync", "wait")
+    try:
+        time.sleep(1.0)
+        with JaxRegionView(str(cache)) as view:
+            snap = view.snapshot()
+        jax_ratio = snap.busy_ns() / (snap.total_launches() * MS)
+        got = line(port)
+        with JaxRegionView(pcache) as view:
+            (slot,) = view.procs()
+            busy, inflight = view.busy_ns(), view.inflight()
+        port.communicate("done\n", timeout=30)
+        out, _ = jax.communicate(timeout=60)
+    finally:
+        for proc in (jax, port):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    assert jax.returncode == 0 and int(out) > 0
+    assert got["hooked"] and slot.launches == got["n"] == got["mock"]
+    port_ratio = busy / (slot.launches * MS)
+    for ratio in (jax_ratio, port_ratio):
+        assert 0.9 <= ratio <= 1.25, (jax_ratio, port_ratio)
+    assert inflight == 0
+
+
+def test_unlimited_long_kernel_is_in_flight(tmp_path, libs):
+    """One 2.5 s kernel with no SM limit: the slot shows it in flight while
+    launches are recent, not after 1 s with no launch (the process may be
+    idle), and after a synchronise and flush it is charged its 2.5 s with
+    nothing in flight."""
+    env, cache = child_env(tmp_path, "long", MOCK_CUDA_KERNEL_NS=2500 * MS)
+    proc = spawn(env, "long")
+    try:
+        assert line(proc)["launched"]
+        time.sleep(0.3)
+        with JaxRegionView(cache) as view:
+            running = view.inflight()
+            time.sleep(1.3)
+            later = view.inflight()
+            assert ask(proc, "sync")["done"]
+            (slot,) = view.procs()
+            after = view.inflight()
+        proc.communicate("done\n", timeout=30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    assert running == 1 and later == 0 and after == 0, (running, later,
+                                                         after)
+    assert 0.95 <= slot.launch_ns / (2500 * MS) <= 1.05, slot.launch_ns

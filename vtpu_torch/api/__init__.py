@@ -119,6 +119,53 @@ ENV_KUBERNETES_SERVICE_HOST = "KUBERNETES_SERVICE_HOST"
 ENV_KUBERNETES_SERVICE_PORT = "KUBERNETES_SERVICE_PORT"
 
 # --------------------------------------------------------------------------
+# Node-monitor knobs (vtpu_torch/monitor; the JAX monitor's names, so one
+# deployment's values serve both vendors)
+# --------------------------------------------------------------------------
+
+# monitor/pathmonitor.py: consecutive corrupt sweeps before a region file
+# is quarantined
+ENV_QUARANTINE_AFTER = "VTPU_QUARANTINE_AFTER"
+# monitor/hostguard.py and monitor/resize.py: grace before feedback blocking
+ENV_HOST_GRACE_S = "VTPU_HOST_GRACE_S"
+ENV_RESIZE_GRACE_S = "VTPU_RESIZE_GRACE_S"
+# monitor/metrics.py: spacing of the cluster-wide LIST fallback, the gate
+# on the interposer's profile families, a live region's staleness horizon
+ENV_MONITOR_LIST_FALLBACK_S = "VTPU_MONITOR_LIST_FALLBACK_S"
+ENV_MONITOR_PROFILE_EXPORT = "VTPU_MONITOR_PROFILE_EXPORT"
+ENV_SHIM_STALE_S = "VTPU_SHIM_STALE_S"
+# enforce/region.py: "0" skips the header-checksum verification
+ENV_REGION_CHECKSUM = "VTPU_REGION_CHECKSUM"
+# util/lockdebug.py, util/logsetup.py, trace/core.py
+ENV_LOCKDEBUG = "VTPU_LOCKDEBUG"
+ENV_LOG_FORMAT = "VTPU_LOG_FORMAT"
+ENV_TRACE_RING = "VTPU_TRACE_RING"
+ENV_TRACE_SPANS = "VTPU_TRACE_SPANS"
+ENV_TRACE_JOURNAL = "VTPU_TRACE_JOURNAL"
+ENV_TRACE_JOURNAL_MAX_KB = "VTPU_TRACE_JOURNAL_MAX_KB"
+
+# the containers directory on the host (the twin of CONTAINER_CACHE_DIR:
+# the plugin's <shim_host_dir>/containers), the monitor's default
+HOST_CONTAINERS_DIR = "/usr/local/vgpu/containers"
+
+# --------------------------------------------------------------------------
+# Files in a container's region directory (<podUID>_<n>/), the port's names
+# for vtpu.cache and its sidecars (vtpu/contracts.py's durable files)
+# --------------------------------------------------------------------------
+
+# the shared region, written by libvgpu.so, read by the monitor
+CACHE_FILENAME = "vgpu.cache"
+# the monitor's durable quarantine marker, resize intent and host-guard
+# record
+QUARANTINE_MARKER = "vgpu.quarantine.json"
+RESIZE_RECORD = "vgpu.resize.json"
+HOSTGUARD_RECORD = "vgpu.hostguard.json"
+# the live-migration drain handshake: the monitor writes the request, the
+# workload (enforce/workload.py) the ack
+DRAIN_REQUEST_FILE = "vgpu.drain.json"
+DRAIN_ACK_FILE = "vgpu.drain.ack.json"
+
+# --------------------------------------------------------------------------
 # Annotation keys and resource names (vtpu/contracts.py:45-112)
 # --------------------------------------------------------------------------
 
@@ -150,8 +197,21 @@ NODE_LOCK_ANNO = f"{DOMAIN}/mutex.lock"
 HOST_MEM_ANNO = f"{DOMAIN}/host-memory"
 NODE_HOST_MEM_ANNO = f"{DOMAIN}/node-host-memory"
 # live migration: the source node, surfaced by Allocate as
-# VTPU_MIGRATED_FROM
+# VTPU_MIGRATED_FROM; the scheduler's durable migration stamp and its
+# deadline, which the monitor's drain coordinator turns into the drain
+# handshake
 MIGRATED_FROM_ANNO = f"{DOMAIN}/migrated-from"
+MIGRATING_TO_ANNO = f"{DOMAIN}/migrating-to"
+MIGRATE_DEADLINE_ANNO = f"{DOMAIN}/migrate-deadline"
+# the pod's task priority (0 = guaranteed; absent = best effort, 1), the
+# durable preemption stamp and the elastic-quota resize intent, all written
+# by the scheduler and read by the monitor
+TASK_PRIORITY_ANNO = f"{DOMAIN}/task-priority"
+TASK_PRIORITY_DEFAULT = 1
+PREEMPTED_BY_ANNO = f"{DOMAIN}/preempted-by"
+HBM_LIMIT_ANNO = f"{DOMAIN}/hbm-limit"
+# end-to-end trace stitch key (trace/core.py trace_id_of_pod)
+TRACE_ID_ANNO = f"{DOMAIN}/trace-id"
 # multi-host slice membership (written empty by plugin/register.py) and a
 # gang member's solved block (read by Allocate for the mesh env); the TPU
 # domain's keys, since the scheduler's slice solver reads them

@@ -14,11 +14,11 @@ layer on top:
   the plugin (workload.py:298-305), it cannot inject the interposer: a CUDA
   process resolves the driver at its first CUDA call, so the library must
   be preloaded when the process starts. install() says so when it is not.
-- :class:`Enforcer` — usage/limit/headroom introspection and the v8 host
-  ledger.
-
-The drain handshake of live migration (workload.py:199-269) is not ported
-yet.
+- :class:`Enforcer` — usage/limit/headroom introspection, the v8 host
+  ledger and the workload's half of the live-migration drain handshake
+  (workload.py:191-269): the node monitor's drain coordinator
+  (vtpu_torch/monitor/migrate.py) writes the request sidecar beside the
+  container's region file, the workload acks it.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ from dataclasses import dataclass, field
 from typing import List, Optional
 
 from .. import api
+from ..util.atomicio import atomic_write_json, read_json
 from .region import (
     SharedRegion,
     UTIL_POLICY_DEFAULT,
@@ -41,6 +42,19 @@ from .region import (
 log = logging.getLogger("vtpu_torch.enforce")
 
 HEARTBEAT_INTERVAL_S = 5.0
+
+# the drain handshake's two sidecar files beside the container's region
+# file (names declared in vtpu_torch/api): the monitor atomically writes the
+# request ({"gen", "dest", "deadline"}), the workload polls it between steps
+# and atomically writes the ack ({"gen", "phase", "host_bytes"}). Both sides
+# exchange only complete files, so a kill on either side at any boundary
+# replays from durable state.
+DRAIN_REQUEST_FILE = api.DRAIN_REQUEST_FILE
+DRAIN_ACK_FILE = api.DRAIN_ACK_FILE
+#: ack phases, in protocol order
+DRAIN_PHASE_SNAPSHOTTED = "snapshotted"
+DRAIN_PHASE_REFUSED = "refused"
+DRAIN_PHASE_RESUMED = "resumed"
 
 
 def parse_bytes(s: str) -> int:
@@ -194,6 +208,82 @@ class Enforcer:
 
     def host_limit(self) -> int:
         return self.quota.host_limit
+
+    # -- cooperative drain handshake (live migration) ----------------------
+    # Poll drain_requested() between steps; on a non-zero generation,
+    # snapshot into host_charge-accounted memory and drain_ack(gen,
+    # DRAIN_PHASE_SNAPSHOTTED, bytes), or DRAIN_PHASE_REFUSED when the
+    # ledger refuses the snapshot's charge (the scheduler then falls back to
+    # preemption).
+
+    def _entry_dir(self) -> str:
+        return os.path.dirname(self.quota.cache_path) \
+            if self.quota.cache_path else ""
+
+    def _request(self) -> Optional[dict]:
+        d = self._entry_dir()
+        if not d:
+            return None
+        req = read_json(os.path.join(d, DRAIN_REQUEST_FILE))
+        return req if isinstance(req, dict) else None
+
+    def drain_requested(self) -> int:
+        """Generation of the pending drain request, 0 when none; one
+        already acked (any phase) is no longer pending."""
+        req = self._request()
+        if req is None:
+            return 0
+        try:
+            gen = int(req.get("gen", 0))
+        except (TypeError, ValueError):
+            return 0
+        if gen <= 0:
+            return 0
+        ack = read_json(os.path.join(self._entry_dir(), DRAIN_ACK_FILE))
+        if isinstance(ack, dict):
+            try:
+                if int(ack.get("gen", 0)) >= gen:
+                    return 0
+            except (TypeError, ValueError):
+                pass
+        return gen
+
+    def drain_deadline(self) -> float:
+        """Absolute epoch-seconds deadline of the pending request, 0.0 when
+        none was stamped."""
+        req = self._request()
+        if req is None:
+            return 0.0
+        try:
+            return float(req.get("deadline", 0.0))
+        except (TypeError, ValueError):
+            return 0.0
+
+    def drain_retracted(self, gen: int) -> bool:
+        """True when drain generation ``gen``, requested and acked by this
+        workload, is no longer what the request asks for: the monitor
+        retracted the move (the sidecar is gone) or superseded it. A
+        drained workload may then release its snapshot and resume."""
+        if not self._entry_dir() or gen <= 0:
+            return False
+        req = self._request()
+        if req is None:
+            return True
+        try:
+            return int(req.get("gen", 0)) != int(gen)
+        except (TypeError, ValueError):
+            return True
+
+    def drain_ack(self, gen: int, phase: str, host_bytes: int = 0) -> None:
+        """Durably acknowledge drain generation ``gen``; the monitor reads
+        it back (after its own restart too) and publishes the phase as
+        /nodeinfo's migrate_state."""
+        d = self._entry_dir()
+        if not d:
+            return
+        atomic_write_json(os.path.join(d, DRAIN_ACK_FILE),
+                          {"gen": int(gen), "phase": phase,
+                           "host_bytes": int(host_bytes)})
 
 
 def install(env=None) -> Enforcer:

@@ -661,7 +661,7 @@ class GPUDevicePlugin(dp_grpc.DevicePluginServicer):
 
         cache_name = f"{pod_uid}_{len(self._consumed_slots(pod))}"
         container_cache = f"{api.CONTAINER_CACHE_DIR}/{cache_name}"
-        envs[api.ENV_SHARED_CACHE] = f"{container_cache}/vgpu.cache"
+        envs[api.ENV_SHARED_CACHE] = f"{container_cache}/{api.CACHE_FILENAME}"
 
         host_cache = os.path.join(
             self.config.shim_host_dir, "containers", cache_name

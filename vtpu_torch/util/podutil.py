@@ -1,7 +1,8 @@
-"""Pod-side helpers of the annotation bus: the Allocate half.
+"""Pod-side helpers of the annotation bus: the Allocate half, and the
+parsers the node monitor shares with it.
 
 The port's copy of vtpu/util/podutil.py:25-285, reduced to what the device
-plugin calls (reference: pkg/util/util.go:41-66 pending-pod lookup, 174-236
+plugin and the monitor call (reference: pkg/util/util.go:41-66 pending-pod lookup, 174-236
 next-device-request + erase-after-consume, 238-294 annotation patches).
 
 The device-plugin/scheduler identity dance (SURVEY.md §7 hard part 3):
@@ -40,6 +41,47 @@ def host_mem_mb_of(annos: Dict[str, str]) -> int:
         log.warning("unparseable %s annotation %r; treating as 0",
                     types.HOST_MEM_ANNO, raw)
         return 0
+
+
+def task_priority_of(annos: Dict[str, str],
+                     default: int = types.TASK_PRIORITY_DEFAULT) -> int:
+    """The pod's task priority (vtpu.io/task-priority), parsed as the
+    scheduler's preemption engine parses it: 0 = guaranteed (may preempt,
+    never a victim); absent or malformed degrades to the best-effort
+    default, so a garbled annotation never mints a guaranteed pod."""
+    raw = (annos or {}).get(types.TASK_PRIORITY_ANNO)
+    if raw is None or raw == "":
+        return default
+    try:
+        prio = int(raw)
+        if prio < 0:
+            raise ValueError(raw)
+        return prio
+    except (ValueError, TypeError):
+        log.warning("unparseable %s annotation %r; treating as "
+                    "best-effort (%d)", types.TASK_PRIORITY_ANNO, raw,
+                    default)
+        return default
+
+
+def pod_uid_of_cache_entry(name: str) -> str:
+    """``<podUID>_<n>`` region directory name (Allocate's cache_name,
+    plugin/server.py) -> podUID: the one reader of that convention, shared
+    by the monitor's region discovery, GC and trace stitching."""
+    return name.rsplit("_", 1)[0]
+
+
+def container_index_of_cache_entry(name: str) -> int:
+    """``<podUID>_<n>`` -> container index n (-1 when unparsable): the
+    resize applier picks a container's segment of a ``vtpu.io/hbm-limit``
+    intent with it, since each container has its own region."""
+    parts = name.rsplit("_", 1)
+    if len(parts) != 2:
+        return -1
+    try:
+        return int(parts[1])
+    except ValueError:
+        return -1
 
 
 def is_pod_in_terminated_state(pod: Dict[str, Any]) -> bool:

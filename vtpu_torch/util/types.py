@@ -20,8 +20,11 @@ from ..api import (  # noqa: F401  (re-exported vocabulary)
     BIND_TIME_ANNO,
     DOMAIN,
     HANDSHAKE_ANNO,
+    HBM_LIMIT_ANNO,
     HOST_MEM_ANNO,
+    MIGRATE_DEADLINE_ANNO,
     MIGRATED_FROM_ANNO,
+    MIGRATING_TO_ANNO,
     NODE_HOST_MEM_ANNO,
     NODE_LOCK_ANNO,
     NODE_REGISTER_ANNO,
@@ -29,6 +32,7 @@ from ..api import (  # noqa: F401  (re-exported vocabulary)
     NOUSE_GPUTYPE_ANNO,
     NUMA_BIND_ANNO,
     NVIDIA_DOMAIN,
+    PREEMPTED_BY_ANNO,
     RESOURCE_CORES,
     RESOURCE_GPU,
     RESOURCE_HOST_MEM,
@@ -36,7 +40,10 @@ from ..api import (  # noqa: F401  (re-exported vocabulary)
     RESOURCE_MEM_PERCENT,
     RESOURCE_PRIORITY,
     SLICE_BLOCK_ANNO,
+    TASK_PRIORITY_ANNO,
+    TASK_PRIORITY_DEFAULT,
     TO_ALLOCATE_ANNO,
+    TRACE_ID_ANNO,
     USE_GPUTYPE_ANNO,
 )
 
