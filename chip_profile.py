@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Where an ai-benchmark case's step spends its time on one NVIDIA GPU:
-case 1.1, the port's ResNet-V2-50 inference at batch 50, or case 1.2, its
-training step at batch 20 with the default SGD (346x346, bf16,
-channels_last; the models and inputs of chip_smoke.py).
+any case of the reference's matrix (``vtpu_torch.models.BENCH_CASES``,
+1.1 by default: the port's ResNet-V2-50 inference at batch 50), at its
+published batch and shape, bf16, channels_last, with the default SGD for
+the training cases (the models and inputs of chip_smoke.py).
 
-    python3 chip_profile.py [--case 1.1|1.2] [--steps N]
+    python3 chip_profile.py [--case 1.1|1.2|2.1|...|5.2] [--steps N]
     python3 chip_profile.py --case 1.2 --allocators [--quota GIB]
         [--allocator default|expandable|async ...]
     python3 chip_profile.py --case 1.1 --sm-limit PCT

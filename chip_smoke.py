@@ -33,23 +33,42 @@ built:
    in bf16 and in f32 (TF32 off): in f32 the loss within 1e-4 relative
    and the whole update within relative L2 5e-2 of the plain step's, in
    bf16 the loss within 5e-2; then ``vtpu_torch.dryrun_multichip(1)``;
-6. quota phases, for case 1.1 (a 12 GiB quota) and case 1.2, each under
+6. F1 fill phase: at a 3 GiB and a 12 GiB quota a child under
+   ``libvgpu.so`` allocates 64 MiB at a time until refused. libvgpu.so
+   charges the process's footprint (the memory the driver holds for it
+   that no allocation call reaches: the context, modules) beside its
+   allocations, so the card's used memory grows by at most 1.02x the
+   quota while the child holds its fill (and, where NVML lists the child
+   under a pid of its own, so does its ``used_memory``). No quota'd child
+   of the script may log that NVML was unavailable (its footprint
+   unmeasured). Then a neighbour: one child allocates 4 GiB while another,
+   at a 3 GiB quota, makes its context (the first once its lock is taken).
+   Where NVML cannot tell processes apart, the growth the second measured
+   holds the 4 GiB, and it must be charged the node's context size (the
+   run's record of quiet readings) and fill its quota less that; where
+   NVML lists it under a pid of its own, its charge must not hold the
+   neighbour's bytes. Tried up to 3 times until the allocation lands inside
+   the measurement. Every interposed child shares the run's own lock
+   directory (``VGPU_LOCK_DIR``), under the run's temp dir;
+7. quota phases, for case 1.1 (a 12 GiB quota) and case 1.2, each under
    the three PyTorch allocators (the default caching allocator,
    ``expandable_segments:True``, ``backend:cudaMallocAsync``). Case 1.2's
    quota under an allocator is its peak ``max_memory_reserved()`` alone
    under that allocator (phase 4 for the default one, a child without the
-   interposer for the others) plus 25%, rounded up to whole GiB:
+   interposer for the others) plus the footprint charge of phase 6, plus
+   25%, rounded up to whole GiB:
    a child started with ``LD_PRELOAD=libvgpu.so`` and its own region file
    calls ``vtpu_torch.enforce.install()`` and runs the case's steps; it
    checks that ``torch.cuda.mem_get_info()`` shows the quota, that the
-   region's charge matches ``torch.cuda.memory_reserved()`` within a
-   stated margin, and that one allocation past the quota raises
+   region's charge less the footprint charge matches
+   ``torch.cuda.memory_reserved()`` within a stated margin, and that one
+   allocation past the quota raises
    ``torch.OutOfMemoryError`` and the case still runs after it. The
    parent reads the region as the node monitor does (``RegionView``): the
    child had a slot while it ran, and the region is clean after it exits;
    it also counts the times the interposer trimmed a memory pool at the
    quota (from its log);
-7. compute-plane phases, each in children with their own region file
+8. compute-plane phases, each in children with their own region file
    (``--sm-child``, one JSON command and reply per line), every number
    printed on its own line:
 
@@ -64,7 +83,9 @@ built:
    (c) solo throttle: case 1.1 at a 50% limit for 12 s, each step
        synchronised, runs at 0.40-0.60x its unthrottled img/s, and the
        device time the region was charged (the slot's ``launch_ns``) is
-       0.8-1.1x the unthrottled CUDA-event step time over those steps;
+       0.8-1.1x the unthrottled CUDA-event step time over those steps; how
+       many charges used a kernel key (shape and argument bytes) seen
+       before is printed;
    (d) two case 1.1 tenants at 70% and 30% at once for 12 s: img/s ratio
        in (1.7, 3.2), each below 0.9x and 0.55x of the solo rate; then,
        printed as their reference, two pods with no limit at once;
@@ -83,7 +104,16 @@ built:
        one past it raises and the process runs on, ``cudaHostRegister``
        and ``cudaHostUnregister`` charge and uncharge; each child's region
        is clean after it exits;
-8. phase (i), the node agent (vtpu_torch/plugin): NVML enumerates the
+9. phase (k), the other models: every case of the reference's matrix
+   (ResNet-V2-50 and -152, VGG-16, DeepLab-v3, the stacked LSTM;
+   inference and training) alone at its published batch and shape, bf16,
+   seeded weights, in one child under ``libvgpu.so`` with no limit: step
+   ms, img/s (sequences/s for the LSTM), peak ``memory_reserved()``, the
+   region's launches a step, finite logits and losses; then each of cases
+   3.1-5.2 in a quota child with the default allocator, its quota the
+   peak alone plus the footprint charge plus 25%, whole GiB, held to the
+   quota phases' checks;
+10. phase (i), the node agent (vtpu_torch/plugin): NVML enumerates the
    cards in this process (its time printed), each card's UUID, name and
    MiB equal to torch's and ``nvidia-smi``'s and its ``/dev/nvidia<minor>``,
    ``/dev/nvidiactl`` and ``/dev/nvidia-uvm`` present. The device plugin
@@ -103,27 +133,30 @@ built:
    runs on, runs at 0.40-0.60x phase (c)'s unthrottled img/s for 12 s, and
    its region at the mount's host path carries the limit, the SM limit 50
    and its slot, and is clean after it exits;
-9. phase (j), the node monitor (vtpu_torch/monitor) over phase (i)'s
+11. phase (j), the node monitor (vtpu_torch/monitor) over phase (i)'s
    plugin: the monitor runs in a child through its entry point
    (``vtpu_torch.monitor.__main__.main``, ``--sweep-interval 1``) with an
    in-memory apiserver, over the plugin's containers directory, and pods
    are case 1.1 ``--sm-child`` children started from Allocate responses
    (``gpumem`` 12288 MiB). Pod H alone (priority 0, ``gpucores`` 50) is
-   released (``utilization_switch`` 1) within 3 sweeps and runs at >= 0.8x
+   released (``utilization_switch`` 1) within 3 sweeps and runs at >= 0.95x
    phase (c)'s unthrottled img/s; the memory gauges match its quota, its
-   ``memory_reserved()`` (within 256 MiB), NVML's capacity and the pods'
-   sum; ``HostCoreUtilization`` over two scrapes 10 s apart is 0.8-1.1x
-   its busy share (CUDA-event step time over wall time), and so it is for
-   pod U with no SM limit alone. Pod L (priority 1, ``gpucores`` 50) joins
+   ``memory_reserved()`` and footprint charge (within 256 MiB), NVML's
+   capacity and the pods' sum; ``HostCoreUtilization`` over two scrapes
+   10 s apart is 0.8-1.1x its busy share (CUDA-event step time over wall
+   time), and so it is for pod U with no SM limit alone and for pod U2,
+   case 1.2 with no SM limit (its gauge over its device-kernel share, from
+   torch.profiler, printed beside). Pod L (priority 1,
+   ``gpucores`` 50) joins
    while H runs: both throttled and L blocked within 3 sweeps, L's region
    launches stand still for 5 s, H runs at 0.40-0.60x. H exits: L is
    unblocked within 3 sweeps and, once H's directory is gone, released
-   and at >= 0.8x. Pod F alone under ``GPU_CORE_UTILIZATION_POLICY=force``
+   and at >= 0.95x. Pod F alone under ``GPU_CORE_UTILIZATION_POLICY=force``
    stays throttled at 0.40-0.60x. ``/nodeinfo`` lists each live pod with
    its limit and usage; the sweep latency is printed; the monitor took no
    context and no device memory; every region is clean after its pod
-   exits; the phase takes under 120 s;
-10. prints the port's native components (the JAX package has no TPU kernel,
+   exits; the phase takes under 120 s, pod U2's time apart;
+12. prints the port's native components (the JAX package has no TPU kernel,
    so ``kernels`` is empty) and, last, ``{"ok": true, "device": ...}``.
 
 Any failed phase ends the run with a non-zero exit and no final line. So
@@ -133,6 +166,7 @@ does a machine without CUDA, or a directory without the repository.
 from __future__ import annotations
 
 import contextlib
+import fcntl
 import json
 import math
 import os
@@ -149,14 +183,14 @@ sys.path.insert(0, ROOT)
 
 import torch  # noqa: E402
 
-from vtpu_torch import native  # noqa: E402
+from vtpu_torch import api, native  # noqa: E402
 from vtpu_torch.enforce import install  # noqa: E402
 from vtpu_torch.enforce.region import (  # noqa: E402
     FEEDBACK_BLOCK,
     FEEDBACK_IDLE,
     RegionView,
 )
-from vtpu_torch.models import BENCH_CASES, get_model  # noqa: E402
+from vtpu_torch.models import BENCH_CASES, case_model, get_model  # noqa: E402
 from vtpu_torch.models.train import (  # noqa: E402
     build_sharded_train_step,
     init_model,
@@ -165,7 +199,7 @@ from vtpu_torch.models.train import (  # noqa: E402
     make_train_step,
 )
 
-CASES = {c.case: c for c in BENCH_CASES if c.case in ("1.1", "1.2")}
+CASES = {c.case: c for c in BENCH_CASES}
 GiB = 1 << 30
 MiB = 1 << 20
 INFER_QUOTA = 12 * GiB
@@ -174,22 +208,33 @@ ALLOCATORS = ("", "expandable_segments:True", "backend:cudaMallocAsync")
 BF16_REL = 5e-2
 # two f32 implementations of one loss (card without TF32, host CPU)
 F32_REL = 1e-4
-# region charge minus torch.cuda.memory_reserved(): device memory that
-# libraries in the process take with cuMemAlloc outside PyTorch's
-# allocator, per thread that uses them. Measured on an H100 (PERF.md) at
-# 67,266,308 B for inference and twice that for training, whose backward
-# runs on autograd's own thread; the margin leaves room for library
-# versions that take more.
+# region charge minus the footprint charge (the memory the driver holds for
+# the process that no allocation call reaches, which libvgpu.so charges
+# too) minus torch.cuda.memory_reserved(): device memory that libraries in
+# the process take with cuMemAlloc outside PyTorch's allocator, per thread
+# that uses them. Measured on an H100 (PERF.md) at 67,266,308 B for
+# inference and twice that for training, whose backward runs on autograd's
+# own thread; the margin leaves room for library versions that take more.
 RESERVED_MARGIN = 256 << 20
-# case 1.2's quota under an allocator: its peak reserved memory alone under
-# that allocator plus this share (a cudaMallocAsync pool reserves ~1.3x what
-# the caching allocator does for the same steps, PERF.md)
+# a training case's quota under an allocator, and each new case's quota in
+# phase (k): its peak reserved memory alone under that allocator plus the
+# process's footprint charge, plus this share (a cudaMallocAsync pool
+# reserves ~1.3x what the caching allocator does for the same steps,
+# PERF.md)
 TRAIN_HEADROOM = 0.25
 # what libvgpu.so logs (LIBCUDA_LOG_LEVEL=3) when it trims a pool at the quota
 TRIM_LOG = "memory pool at the quota, trimmed"
 WARMUP = 3
-STEPS = {"1.1": 10, "1.2": 10}
+# timed steps: 10 for cases 1.x; phase (k) times the other cases' steps
+# fewer (the LSTM's training step runs ~60,000 launches)
+STEPS = {c.case: 10 if c.case.startswith("1.") else
+         5 if c.mode == "inference" else 3 for c in BENCH_CASES}
 CHILD_TIMEOUT_S = 300
+# what libvgpu.so logs, whatever its log level, when NVML cannot measure a
+# quota'd process's footprint at all, and when it can measure only its
+# context's size at creation
+NVML_MISSING_LOG = "NVML unavailable"
+CONTEXT_ONLY_LOG = "cannot tell this process apart"
 
 
 class SmokeFailure(Exception):
@@ -209,19 +254,31 @@ def card() -> str:
     return out[0].strip()
 
 
+def per_pixel(case) -> bool:
+    """whether ``case`` labels every pixel (segmentation)"""
+    return case.model == "deeplab_v3"
+
+
+def unit(case) -> str:
+    return "seq/s" if case.model == "lstm" else "img/s"
+
+
 def make_batch(case, seed: int):
-    """A seeded NHWC batch of ``case`` on the card, and its labels."""
+    """A seeded batch of ``case`` on the card in the JAX layout (NHWC
+    images, [b, T, F] sequences), and its labels ([b, h, w] for
+    segmentation)."""
     gen = torch.Generator().manual_seed(seed)
     x = torch.randn((case.batch,) + case.shape, generator=gen)
-    y = torch.randint(0, case.classes, (case.batch,), generator=gen)
+    labels = (case.batch,) + (case.shape[:2] if per_pixel(case) else ())
+    y = torch.randint(0, case.classes, labels, generator=gen)
     return x.cuda(), y.cuda()
 
 
 def build_model(case, dtype: torch.dtype, seed: int = 0):
-    """``case``'s model on the card, channels_last, with weights from
-    ``seed``."""
-    model = get_model(case.model, num_classes=case.classes, dtype=dtype,
-                      device="cuda").to(memory_format=torch.channels_last)
+    """``case``'s model at its published shape on the card, channels_last
+    (the LSTM has no 4-d tensor to lay out), with weights from ``seed``."""
+    model = case_model(case, dtype, device="cuda").to(
+        memory_format=torch.channels_last)
     init_model(model, make_batch(case, seed)[0],
                torch.Generator().manual_seed(seed + 1))
     return model
@@ -256,7 +313,9 @@ def run_case(case, model, steps: int):
     else:
         batches = [make_batch(case, 100 + i) for i in range(WARMUP + steps)]
         step, _ = make_train_step(model)
-        outs, ms, host_ms = time_steps(lambda i: step(*batches[i]), steps)
+        dropout = torch.Generator(device="cuda").manual_seed(7)
+        outs, ms, host_ms = time_steps(
+            lambda i: step(*batches[i], dropout), steps)
         losses = torch.stack(outs)
         check(bool(torch.isfinite(losses).all()),
               f"case {case.case}: non-finite loss in {losses.tolist()}")
@@ -264,8 +323,10 @@ def run_case(case, model, steps: int):
 
 
 def check_logits(case, out: torch.Tensor) -> None:
-    check(tuple(out.shape) == (case.batch, case.classes),
-          f"logits shape {tuple(out.shape)}")
+    want = (case.batch,) + (case.shape[:2] if per_pixel(case) else ()) + (
+        case.classes,)
+    check(tuple(out.shape) == want, f"case {case.case}: logits shape "
+          f"{tuple(out.shape)}, not {want}")
     check(out.dtype == torch.float32, f"logits dtype {out.dtype}")
     check(bool(torch.isfinite(out).all()), "non-finite logits")
 
@@ -483,13 +544,18 @@ def quota_child(case_name: str, quota: int) -> None:
     out, ms, host_ms, img_s = run_case(case, model, STEPS[case_name])
     free, total = torch.cuda.mem_get_info()
     used = enf.used()
+    fp = enf.footprint()
     reserved = torch.cuda.memory_reserved()
     check(total == quota, f"mem_get_info total {total} != quota {quota}")
     check(free == quota - used, f"mem_get_info free {free} != quota - "
           f"region used {quota - used}")
-    check(0 <= used - reserved <= RESERVED_MARGIN,
-          f"region used {used} vs memory_reserved {reserved}: gap "
-          f"{used - reserved} B outside [0, {RESERVED_MARGIN}]")
+    check(fp["mode"] in ("nvml_pid", "context"),
+          f"no footprint charged: {fp}")
+    gap = used - fp["bytes"] - reserved
+    check(0 <= gap <= RESERVED_MARGIN,
+          f"region used {used} less the footprint charge {fp['bytes']} vs "
+          f"memory_reserved {reserved}: gap {gap} B outside [0, "
+          f"{RESERVED_MARGIN}]")
     try:
         torch.empty(quota, dtype=torch.uint8, device="cuda")
         raise SmokeFailure("an allocation past the quota succeeded")
@@ -503,6 +569,7 @@ def quota_child(case_name: str, quota: int) -> None:
               f"refusal")
     print(json.dumps({"pid": os.getpid(), "step_ms": ms,
                       "host_step_ms": host_ms, "img_s": img_s,
+                      "footprint": fp,
                       "loss_after_refusal": float(after)
                       if case.mode == "training" else None,
                       "region_used": enf.used(),
@@ -542,11 +609,24 @@ def alone_peak(case_name: str, alloc_conf: str) -> int:
         "max_memory_reserved"]
 
 
-def child_env(alloc_conf: str, quota: int):
+_LOCK_DIR = []
+
+
+def run_lock_dir() -> str:
+    """The node's lock directory of this run (libvgpu.so's context lock and
+    its record of context sizes), shared by the run's interposed children
+    and made under the run's own temp dir; main removes it."""
+    if not _LOCK_DIR:
+        _LOCK_DIR.append(tempfile.mkdtemp(prefix="vgpu-smoke-locks-"))
+    return _LOCK_DIR[0]
+
+
+def child_env(alloc_conf: str, quota):
     """(temp dir, region file, env) for a quota child: libvgpu.so
-    preloaded, ``quota`` bytes, its own region file under
-    .../containers/<pod uid>_0/, and ``alloc_conf`` as
-    PYTORCH_CUDA_ALLOC_CONF ("" = PyTorch's default allocator)."""
+    preloaded, ``quota`` bytes (None: no memory limit), its own region file
+    under .../containers/<pod uid>_0/, the run's lock directory, and
+    ``alloc_conf`` as PYTORCH_CUDA_ALLOC_CONF ("" = PyTorch's default
+    allocator)."""
     tmp = tempfile.mkdtemp(prefix="vgpu-smoke-")
     cache = os.path.join(tmp, "containers", "smoke-pod_0", "vgpu.cache")
     os.makedirs(os.path.dirname(cache))
@@ -555,13 +635,23 @@ def child_env(alloc_conf: str, quota: int):
                                 "PYTORCH_CUDA_ALLOC_CONF"))}
     env.update({
         "LD_PRELOAD": native.interposer(),
-        "CUDA_DEVICE_MEMORY_LIMIT": str(quota),
         "CUDA_DEVICE_MEMORY_SHARED_CACHE": cache,
+        api.ENV_LOCK_DIR: run_lock_dir(),
         "PYTHONPATH": ROOT,
     })
+    if quota is not None:
+        env["CUDA_DEVICE_MEMORY_LIMIT"] = str(quota)
     if alloc_conf:
         env["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
     return tmp, cache, env
+
+
+def check_nvml(err: str, who: str) -> None:
+    """``who``'s libvgpu.so measured its footprint: it did not log that
+    NVML was unavailable (which leaves the quota blind to the context)."""
+    check(NVML_MISSING_LOG not in err, f"{who}: libvgpu.so could not "
+          f"measure the footprint: "
+          f"{[t for t in err.splitlines() if NVML_MISSING_LOG in t][:1]}")
 
 
 def check_clean(cache: str) -> None:
@@ -609,6 +699,7 @@ def quota_phase(name: str, case_name: str, quota: int,
         err = errf.read()
         check(proc.returncode == 0,
               f"quota child rc {proc.returncode}:\n{err[-4000:]}")
+        check_nvml(err, f"case {case_name} quota child ({label})")
         check_clean(cache)
     finally:
         if proc.poll() is None:
@@ -620,15 +711,242 @@ def quota_phase(name: str, case_name: str, quota: int,
                   quota_bytes=quota, device_footprint_bytes=footprint,
                   unaccounted_bytes=footprint - region_used,
                   pool_trims=err.count(TRIM_LOG))
+    fp = report["footprint"]
     print(f"case {case_name} under libvgpu.so, {quota} B quota, {label}: "
           f"{report['step_ms']:.3f} ms/step (CUDA events), "
-          f"{report['img_s']:.1f} img/s; region charge {region_used} B vs "
-          f"memory_reserved {report['memory_reserved']} B (at the check: "
-          f"{report['used_at_check']} vs {report['reserved_at_check']}); "
-          f"child device footprint {footprint} B, of it not charged "
-          f"{footprint - region_used} B; {result['pool_trims']} pool trims "
-          f"at the quota; on {name}", flush=True)
+          f"{report['img_s']:.1f} {unit(CASES[case_name])}; region charge "
+          f"{region_used} B vs memory_reserved {report['memory_reserved']} B "
+          f"(at the check: {report['used_at_check']} vs "
+          f"{report['reserved_at_check']}), of the charge {fp['bytes']} B "
+          f"the process's footprint ({fp['mode']}, {fp['reads']} NVML "
+          f"re-reads of {fp['read_ns'] / max(1, fp['reads']) / 1e3:.1f} us "
+          f"mean, {fp['read_max_ns'] / 1e3:.1f} us at most); the card's "
+          f"memory moved by {footprint} B while the child ran, of it not "
+          f"charged {footprint - region_used} B; {result['pool_trims']} "
+          f"pool trims at the quota; on {name}", flush=True)
     return result
+
+
+# ---------------------------------------------- F1: the whole footprint.
+# A child under libvgpu.so fills its quota 64 MiB at a time until refused;
+# the card's used memory says what the process really holds.
+
+FILL_QUOTAS = (3 * GiB, 12 * GiB)
+FILL_STEP = 64 << 20
+# the process's device memory against its quota: the system's target, under
+# 2% leakage (BASELINE.md:29-31)
+FILL_LEAKAGE = 0.02
+
+
+def compute_apps_memory() -> list:
+    """(pid, used MiB) of each of the card's compute processes, as
+    nvidia-smi lists them"""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"], check=True, capture_output=True,
+        text=True, timeout=60).stdout
+    apps = []
+    for line in out.splitlines():
+        fields = [v.strip() for v in line.split(",")]
+        if len(fields) == 2 and all(v.isdigit() for v in fields):
+            apps.append((int(fields[0]), int(fields[1])))
+    return apps
+
+
+def fill_phase(name: str) -> list:
+    """F1: at each of FILL_QUOTAS a child allocates 64 MiB at a time until
+    libvgpu.so refuses; the card's used memory grew by what the process
+    holds, context and all, which must stay within 2% of the quota. Where
+    NVML lists the child under a pid of its own, its used_memory is held
+    to the same bound."""
+    results = []
+    for quota in FILL_QUOTAS:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        free0, _ = torch.cuda.mem_get_info()
+        child = SmChild(f"F1 fill {quota >> 30} GiB", quota=quota)
+        try:
+            r = child.ask("fill")
+            free1, _ = torch.cuda.mem_get_info()
+            apps = compute_apps_memory()
+            with child.view() as view:
+                region_used = view.used(0)
+            child.ask("release")
+            child.close()
+        finally:
+            if child.proc.poll() is None:
+                child.proc.kill()
+                child.proc.wait(timeout=60)
+        fp = r["footprint"]
+        held = free0 - free1  # the child's device memory, by the card
+        nvml_pid = fp["nvml_pid"] if fp["mode"] == "nvml_pid" else r["pid"]
+        own = [mib for pid, mib in apps if pid == nvml_pid]
+        nvml_used = own[0] * MiB if len(own) == 1 else None
+        print(f"F1 fill at a {quota} B quota: {r['filled']} B in "
+              f"{FILL_STEP >> 20} MiB allocations until refused; region "
+              f"charge {region_used} B, of it the footprint {fp['bytes']} B "
+              f"({fp['mode']}; the card grew by {fp['growth']} B across the "
+              f"context's creation, the node's context size on record "
+              f"{fp['node_context']} B); mem_get_info free {r['free']} B of "
+              f"{r['total']} B; the card's used memory grew by {held} B, "
+              f"{held / quota:.4f}x the quota; NVML's compute processes "
+              f"(pid, MiB) {apps}: "
+              + (f"the child's used_memory {nvml_used} B, "
+                 f"{nvml_used / quota:.4f}x the quota"
+                 if nvml_used is not None else
+                 f"no entry of the child's own (NVML pid {nvml_pid})")
+              + (f"; the footprint is the context's size at creation, not "
+                 f"re-read" if child.context_only else "")
+              + f"; on {name}", flush=True)
+        check(r["total"] == quota, f"F1 fill: mem_get_info total "
+              f"{r['total']}")
+        check(fp["mode"] in ("nvml_pid", "context") and fp["bytes"] > 0,
+              f"F1 fill: no footprint charged: {fp}")
+        check(region_used == r["used"] <= quota
+              and r["filled"] + fp["bytes"] <= quota,
+              f"F1 fill: charge {region_used} B past the quota")
+        check(held <= (1 + FILL_LEAKAGE) * quota, f"F1 fill: the process "
+              f"holds {held} B, {held / quota:.4f}x its quota")
+        if nvml_used is not None:
+            check(nvml_used <= (1 + FILL_LEAKAGE) * quota, f"F1 fill: NVML "
+                  f"used_memory {nvml_used} B, {nvml_used / quota:.4f}x")
+        results.append({"phase": f"F1 fill {quota >> 30} GiB",
+                        "quota_bytes": quota, "filled_bytes": r["filled"],
+                        "region_used": region_used, "footprint": fp,
+                        "card_delta_bytes": held,
+                        "leakage": held / quota - 1,
+                        "nvml_used_bytes": nvml_used,
+                        "context_only": child.context_only})
+    return results
+
+
+# ---------------------------- F1: a neighbour inside a context's measure.
+NEIGHBOUR_BYTES = 4 * GiB
+# after the lock is taken: past the card's reads before the creation (two
+# NVML reads 2 ms apart), well inside the creation (PyTorch's primary
+# context takes ~100 ms and more, printed)
+NEIGHBOUR_AFTER_MS = 20
+NEIGHBOUR_TRIES = 3
+
+
+def neighbour_phase(name: str) -> dict:
+    """F1 beside a neighbour: pod B allocates NEIGHBOUR_BYTES while pod A
+    (a 3 GiB quota) makes its context. Where NVML cannot tell processes
+    apart, A's footprint is the card's growth across the creation, which
+    then holds B's bytes: A must be charged the node's context size (the
+    run's record of quiet readings, which earlier children made) and fill
+    its quota less that. Where NVML lists A under a pid of its own, A's
+    charge is its own usedGpuMemory and must not hold B's bytes. Tried up
+    to NEIGHBOUR_TRIES times until B's allocation lands inside A's
+    measurement."""
+    quota = FILL_QUOTAS[0]
+    b = SmChild("F1 neighbour", quota=None)
+    try:
+        for attempt in range(1, NEIGHBOUR_TRIES + 1):
+            b.send("alloc_when_locked", bytes=NEIGHBOUR_BYTES,
+                   after_ms=NEIGHBOUR_AFTER_MS)
+            a = SmChild("F1 pod beside the neighbour", quota=quota,
+                        wait=False)
+            try:
+                first = a.ready()
+                landed = b.read()["landed"]
+                fill = a.ask("fill")
+                a.ask("release")
+                a.close()
+            finally:
+                if a.proc.poll() is None:
+                    a.proc.kill()
+                    a.proc.wait(timeout=60)
+            b.ask("release")
+            fp = first["footprint"]
+            inside = fp["growth"] >= NEIGHBOUR_BYTES \
+                if fp["mode"] == "context" else landed
+            print(f"F1 neighbour, try {attempt}: a neighbour allocated "
+                  f"{NEIGHBOUR_BYTES} B {NEIGHBOUR_AFTER_MS} ms after a pod "
+                  f"took the context lock (still held once allocated: "
+                  f"{landed}); the pod's context took "
+                  f"{first['context_ms']:.1f} ms; footprint mode "
+                  f"{fp['mode']}, the card grew by {fp['growth']} B across "
+                  f"the creation, the node's context size on record "
+                  f"{fp['node_context']} B, charged {fp['bytes']} B; then "
+                  f"{fill['filled']} B filled at a {quota} B quota; on "
+                  f"{name}", flush=True)
+            if inside:
+                break
+        check(inside, f"F1 neighbour: the allocation never landed inside "
+              f"a context's measurement in {NEIGHBOUR_TRIES} tries")
+        b.close()
+    finally:
+        if b.proc.poll() is None:
+            b.proc.kill()
+            b.proc.wait(timeout=60)
+    if fp["mode"] == "context":
+        check(0 < fp["node_context"] == fp["bytes"], f"F1 neighbour: "
+              f"charged {fp['bytes']} B, not the node's context size "
+              f"{fp['node_context']} B: the neighbour's allocation landed "
+              f"in the pod's footprint")
+    else:
+        check(fp["mode"] == "nvml_pid" and fp["bytes"] < NEIGHBOUR_BYTES,
+              f"F1 neighbour: the pod's footprint {fp} holds the "
+              f"neighbour's allocation")
+    check(quota - fp["bytes"] - FILL_STEP - RESERVED_MARGIN
+          <= fill["filled"] <= quota - fp["bytes"],
+          f"F1 neighbour: {fill['filled']} B filled at a {quota} B quota "
+          f"less a {fp['bytes']} B footprint")
+    return {"phase": "F1 neighbour", "tries": attempt, "landed": landed,
+            "context_ms": first["context_ms"], "footprint": fp,
+            "filled_bytes": fill["filled"], "quota_bytes": quota}
+
+
+# ------------------------------------------------- (k) the other models.
+ZOO_CASES = ("3.1", "3.2", "4.1", "4.2", "5.1", "5.2")
+
+
+def zoo_phase(name: str) -> list:
+    """Phase (k): every case of BENCH_CASES alone, at its published batch
+    and shape, bf16, seeded weights, in one --sm-child under libvgpu.so
+    with no limit (for its launch counts): step ms, img/s (sequences/s for
+    the LSTM), peak memory_reserved(), the region's launches a step,
+    finite logits or losses. Then each of ZOO_CASES under its own quota,
+    its peak alone plus the footprint charge plus 25%, whole GiB, held to
+    the quota phases' checks."""
+    start = time.perf_counter()
+    results = []
+    alone = SmChild("(k) every case alone", quota=None)
+    try:
+        for case in BENCH_CASES:
+            r = alone.ask("zoo", case=case.case)
+            results.append(dict(r, phase=f"(k) case {case.case} alone"))
+            print(f"(k) case {case.case}, {case.model} {case.mode} batch "
+                  f"{case.batch} {'x'.join(map(str, case.shape))}: "
+                  f"{r['ms']:.3f} ms/step (CUDA events, "
+                  f"{STEPS[case.case]} steps), host {r['host_ms']:.3f} "
+                  f"ms/step, {r['rate']:.1f} {unit(case)}; peak "
+                  f"memory_reserved {r['peak_reserved']} B; "
+                  f"{r['launches_per_step']:.0f} region launches a step; "
+                  f"model built in {r['build_s']:.1f} s; on {name}",
+                  flush=True)
+            check(r["finite"], f"(k) case {case.case}: non-finite output")
+        alone.close()
+    finally:
+        if alone.proc.poll() is None:
+            alone.proc.kill()
+            alone.proc.wait(timeout=60)
+    by_case = {r["phase"].split()[2]: r for r in results}
+    for case_name in ZOO_CASES:
+        peak = by_case[case_name]["peak_reserved"]
+        fp = by_case[case_name]["footprint"]["bytes"]
+        quota = math.ceil((peak + fp) * (1 + TRAIN_HEADROOM) / GiB) * GiB
+        print(f"(k) case {case_name} quota: max_memory_reserved alone {peak} "
+              f"B + footprint {fp} B, + {TRAIN_HEADROOM:.0%}, rounded up to "
+              f"whole GiB: {quota} B", flush=True)
+        results.append(dict(quota_phase(name, case_name, quota, ""),
+                            max_memory_reserved_alone=peak,
+                            footprint_alone=fp))
+    took = time.perf_counter() - start
+    print(f"(k) the phase took {took:.1f} s; on {name}", flush=True)
+    results.append({"phase": "(k) time", "phase_s": took})
+    return results
 
 
 # ------------------------------------------------------ the compute plane.
@@ -654,15 +972,22 @@ class SmChild:
     """A --sm-child process and its region file."""
 
     def __init__(self, label: str, interposed: bool = True, sm_limit=None,
-                 priority=None, host_limit=None, given=None):
+                 priority=None, host_limit=None, given=None,
+                 quota=INFER_QUOTA, wait: bool = True):
         """``given`` = (env, region file) replaces the env this class
-        builds (phase (i): the env of an Allocate response)."""
+        builds (phases (i) and (j): the env of an Allocate response, given
+        the run's lock directory, which Allocate mounts from the node);
+        ``quota`` None runs with no memory limit. Unless ``wait`` is False
+        (then call :meth:`ready`), returns once the child's context is
+        made."""
         self.label = label
+        self.context_only = False
         if given is not None:
             env, self.cache = given
+            env = dict(env, **{api.ENV_LOCK_DIR: run_lock_dir()})
             self.tmp = tempfile.mkdtemp(prefix="vgpu-smoke-")
         else:
-            self.tmp, self.cache, env = child_env("", INFER_QUOTA)
+            self.tmp, self.cache, env = child_env("", quota)
         if not interposed:
             env = {k: v for k, v in env.items() if not k.startswith(
                 ("LD_PRELOAD", "CUDA_DEVICE_MEMORY"))}
@@ -676,6 +1001,13 @@ class SmChild:
             [sys.executable, os.path.abspath(__file__), "--sm-child"],
             env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
             stderr=self.errf, text=True)
+        if wait:
+            self.ready()
+
+    def ready(self) -> dict:
+        """the child's first line: its context is made (the footprint
+        libvgpu.so charged for it, and how long it took)"""
+        return self.read()
 
     def send(self, op: str, **args) -> None:
         self.proc.stdin.write(json.dumps(dict(args, op=op)) + "\n")
@@ -714,14 +1046,22 @@ class SmChild:
                 self.proc.wait(timeout=60)
             self.errf.close()
         check(rc == 0, f"{self.label} child rc {rc}:\n{err[-4000:]}")
+        check_nvml(err, f"{self.label} child")
+        self.context_only = CONTEXT_ONLY_LOG in err
         if os.path.exists(self.cache):
             check_clean(self.cache)
         shutil.rmtree(self.tmp, ignore_errors=True)
 
 
 def sm_child() -> None:
-    """Runs in a --sm-child process: one JSON reply per JSON command."""
+    """Runs in a --sm-child process: one JSON reply per JSON command,
+    after a first line once its CUDA context is made."""
     enf = install()
+    t0 = time.perf_counter()
+    torch.empty(1, device="cuda")
+    print(json.dumps({"ready": True, "footprint": enf.footprint(),
+                      "context_ms": (time.perf_counter() - t0) * 1e3}),
+          flush=True)
     models = {}
 
     def model(case_name):
@@ -768,10 +1108,13 @@ def sm_child() -> None:
 
     def timed(fn, seconds):
         """fn() then a synchronisation, over and over for ``seconds``:
-        (calls, wall s, the slot's launches and launch_ns over them)"""
+        (calls, wall s, the slot's launches and launch_ns over them, and
+        libvgpu.so's sampled spans: how many in the run, and the busy
+        fraction of the recent ones at its end)"""
         fn()
         torch.cuda.synchronize()
         first = slot() if enf.interposed else None
+        spans = enf.span_busy()
         n, t0 = 0, time.perf_counter()
         while time.perf_counter() - t0 < seconds:
             fn()
@@ -781,17 +1124,71 @@ def sm_child() -> None:
         res = {"calls": n, "wall_s": wall}
         if first is not None:
             last = slot()
+            end = enf.span_busy()
             res.update(launches=last.launches - first.launches,
-                       launch_ns=last.launch_ns - first.launch_ns)
+                       launch_ns=last.launch_ns - first.launch_ns,
+                       span_samples=end["samples"] - spans["samples"],
+                       span_busy=end["busy_fraction"])
         return res
 
+    def stepper(case_name):
+        """one step of the case on a fixed batch, as a function"""
+        case = CASES[case_name]
+        x, y = make_batch(case, 0)
+        if case.mode == "inference":
+            step = make_infer_step(model(case_name))
+            return lambda: step(x)
+        step, _ = make_train_step(model(case_name))
+        return lambda: step(x, y)
+
     def op_run(cmd):
-        step, x = infer()
+        case_name = cmd.get("case", "1.1")
+        fn = stepper(case_name)
         for _ in range(WARMUP):
-            step(x)
-        res = timed(lambda: step(x), cmd["seconds"])
-        res["img_s"] = res["calls"] * CASES["1.1"].batch / res["wall_s"]
+            fn()
+        res = timed(fn, cmd["seconds"])
+        res["img_s"] = res["calls"] * CASES[case_name].batch / res["wall_s"]
         return res
+
+    def op_kernel_ms(cmd):
+        """the device's kernel time per step of the case (torch.profiler
+        over ``steps`` steps), and the wall time per step meanwhile"""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        fn, steps = stepper(cmd["case"]), cmd["steps"]
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                      if e.device_type == DeviceType.CUDA)
+        return {"kernel_ms": busy_us / 1e3 / steps,
+                "wall_ms": wall * 1e3 / steps}
+
+    def op_zoo(cmd):
+        """phase (k): the case alone, at its published batch and shape,
+        then its model freed"""
+        case = CASES[cmd["case"]]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        net = build_model(case, torch.bfloat16)
+        built = time.perf_counter() - t0
+        before = slot().launches
+        out, ms, host_ms, rate = run_case(case, net, STEPS[case.case])
+        launches = slot().launches - before
+        finite = bool(torch.isfinite(out).all())
+        del net, out
+        peak = torch.cuda.max_memory_reserved()
+        torch.cuda.empty_cache()
+        return {"ms": ms, "host_ms": host_ms, "rate": rate,
+                "peak_reserved": peak, "finite": finite,
+                "launches_per_step": launches / (WARMUP + STEPS[case.case]),
+                "build_s": built, "footprint": enf.footprint()}
 
     def op_graph(cmd):
         step, x = infer()
@@ -873,11 +1270,71 @@ def sm_child() -> None:
 
     def op_mem(cmd):
         torch.cuda.synchronize()
-        return {"reserved": torch.cuda.memory_reserved(), "pid": os.getpid()}
+        return {"reserved": torch.cuda.memory_reserved(), "pid": os.getpid(),
+                "footprint": enf.footprint()}
 
+    def op_keys(cmd):
+        return enf.kernel_keys()
+
+    def op_fill(cmd):
+        """F1: 64 MiB at a time until the quota refuses one; the memory
+        stays held until the next command"""
+        held = []
+        try:
+            while True:
+                held.append(torch.empty(FILL_STEP, dtype=torch.uint8,
+                                        device="cuda"))
+        except torch.OutOfMemoryError:
+            pass
+        torch.cuda.synchronize()
+        free, total = torch.cuda.mem_get_info()
+        fills.append(held)
+        return {"filled": len(held) * FILL_STEP, "free": free,
+                "total": total, "used": enf.used(),
+                "reserved": torch.cuda.memory_reserved(),
+                "footprint": enf.footprint(), "pid": os.getpid()}
+
+    def op_release(cmd):
+        fills.clear()
+        torch.cuda.empty_cache()
+        return {"used": enf.used()}
+
+    def op_alloc_when_locked(cmd):
+        """F1's neighbour: once another process holds the node's context
+        lock (it is making its first context, between the card's reads),
+        wait cmd["after_ms"], then allocate cmd["bytes"] and hold them;
+        landed: the lock was still held once the allocation was made"""
+        path = os.path.join(os.environ[api.ENV_LOCK_DIR],
+                            "vgpu-context.lock")
+        until = time.monotonic() + CHILD_TIMEOUT_S / 2
+        with open(path, "a") as f:
+            while True:
+                try:
+                    fcntl.flock(f, fcntl.LOCK_EX | fcntl.LOCK_NB)
+                except BlockingIOError:
+                    break
+                fcntl.flock(f, fcntl.LOCK_UN)
+                if time.monotonic() > until:
+                    raise TimeoutError("no process took the context lock")
+                time.sleep(0.0005)
+            time.sleep(cmd["after_ms"] / 1e3)
+            fills.append(torch.empty(cmd["bytes"], dtype=torch.uint8,
+                                     device="cuda"))
+            torch.cuda.synchronize()
+            try:
+                fcntl.flock(f, fcntl.LOCK_EX | fcntl.LOCK_NB)
+                fcntl.flock(f, fcntl.LOCK_UN)
+                landed = False
+            except BlockingIOError:
+                landed = True
+        return {"landed": landed, "used": enf.used()}
+
+    fills = []
     ops = {"time": op_time, "profile": op_profile, "run": op_run,
            "graph": op_graph, "step": op_step, "host": op_host,
-           "quota": op_quota, "mem": op_mem}
+           "quota": op_quota, "mem": op_mem, "keys": op_keys,
+           "kernel_ms": op_kernel_ms, "zoo": op_zoo, "fill": op_fill,
+           "release": op_release, "alloc_when_locked": op_alloc_when_locked}
     for line in sys.stdin:
         cmd = json.loads(line)
         try:
@@ -893,7 +1350,7 @@ def compute_phases(name: str) -> list:
     phases = []
 
     def start(label, **kw):
-        children[label] = SmChild(label, **kw)
+        children[label] = SmChild(label, wait=False, **kw)
         return children[label]
 
     try:
@@ -904,6 +1361,10 @@ def compute_phases(name: str) -> list:
         hi = start("SM limit 70", sm_limit=70)
         lo = start("SM limit 30", sm_limit=30, priority=1)
         host = start("host limit", host_limit=HOST_LIMIT)
+        # every child started, its context made, before any is timed: a
+        # process starting beside a timed run would skew its time
+        for child in children.values():
+            child.ready()
 
         # (b) unthrottled cost, then (a) launch visibility
         times = {}
@@ -948,6 +1409,7 @@ def compute_phases(name: str) -> list:
         solo = ref["img_s"]
         step_ms = times["1.1", "no SM limit"]["ms"]
         run = half.ask("run", seconds=SM_RUN_S)
+        keys = half.ask("keys")
         share = run["img_s"] / solo
         debit = run["launch_ns"] / 1e6 / (run["calls"] * step_ms)
         print(f"(c) case 1.1 at a 50% SM limit for {run['wall_s']:.1f} s: "
@@ -956,9 +1418,17 @@ def compute_phases(name: str) -> list:
               f"{run['launch_ns'] / 1e6 / run['calls']:.3f} ms/step, "
               f"{debit:.3f}x the unthrottled CUDA-event step of "
               f"{step_ms:.3f} ms; on {name}", flush=True)
+        print(f"(c) kernels keyed by shape and argument bytes: "
+              f"{keys['seen']} charges by an argument key seen before, "
+              f"{keys['new']} by a new one (charged the shape's least "
+              f"time), {keys['shape_only']} by the shape alone, "
+              f"{keys['table_full']} past a full shape table; "
+              f"{keys['layouts']} functions with an argument layout, "
+              f"{keys['no_layout']} without; on {name}", flush=True)
         phases.append({"phase": "(c) case 1.1 at 50%", "img_s": run["img_s"],
                        "unthrottled_img_s": solo, "share": share,
-                       "debit_vs_event_time": debit, **run})
+                       "debit_vs_event_time": debit, "kernel_keys": keys,
+                       **run})
         check(0.40 <= share <= 0.60, f"(c) 50% ran at {share:.3f}x")
         check(0.8 <= debit <= 1.1, f"(c) debited {debit:.3f}x the step time")
         g = half.ask("graph", seconds=GRAPH_RUN_S)
@@ -1212,7 +1682,7 @@ class PluginChild:
 
 
 def node_agent_phase(name: str, solo_img_s: float,
-                     step_ms: float) -> list:
+                     step_ms: dict) -> list:
     """Phase (i): the device plugin enumerates the card through NVML,
     advertises its replicas to a fake kubelet, reports the inventory, and
     answers Allocate for a pod the script assigns as the scheduler would;
@@ -1221,7 +1691,6 @@ def node_agent_phase(name: str, solo_img_s: float,
     monitor, over the same plugin's pods."""
     import grpc
 
-    from vtpu_torch import api
     from vtpu_torch.plugin import deviceplugin_pb2 as pb
     from vtpu_torch.plugin import dp_grpc, runtime
     from vtpu_torch.plugin.nvml import NvmlLib
@@ -1501,6 +1970,9 @@ print("stopped", file=out, flush=True)
 """
 
 SWEEP_S = 1.0          # the monitor's sweep interval in (j)
+# a released pod with an SM limit alone against the unthrottled img/s: it
+# times spans as an unlimited pod does (+0.3-0.6%, phase (b))
+RELEASED_SHARE = 0.95
 SWEEPS_TO_ACT = 3      # what the monitor must do, it does within 3 sweeps
 UTIL_WINDOW_S = 10.0   # two scrapes this far apart give HostCoreUtilization
 MONITOR_PHASE_S = 120.0
@@ -1623,7 +2095,7 @@ def nvml_utilization(uuid: str):
         lib.close()
 
 
-def monitor_phase(name: str, solo_img_s: float, step_ms: float, plugin,
+def monitor_phase(name: str, solo_img_s: float, step_ms: dict, plugin,
                   sock: str, chip, tmp: str) -> dict:
     """Phase (j): the node monitor over phase (i)'s plugin. Pods are case
     1.1 --sm-children started from Allocate responses (gpumem 12288 MiB);
@@ -1631,23 +2103,26 @@ def monitor_phase(name: str, solo_img_s: float, step_ms: float, plugin,
     families and serves /nodeinfo. Steps:
 
     1. pod H alone (priority 0, gpucores 50): released within 3 sweeps and
-       runs at >= 0.8x unthrottled; the memory gauges; HostCoreUtilization
-       over two scrapes 10 s apart within 0.8-1.1x H's busy share (its
-       CUDA-event step time over wall time);
+       runs at >= 0.95x unthrottled (a released pod times spans, not every
+       launch); the memory gauges; HostCoreUtilization over two scrapes 10 s
+       apart within 0.8-1.1x H's busy share (its CUDA-event step time over
+       wall time);
     2. pod U with no gpucores alone: the same utilization bound (busy time
-       is charged on a card with no SM limit);
+       is charged on a card with no SM limit); then pod U2, case 1.2 (host
+       bound) with no gpucores alone: its HostCoreUtilization over its
+       CUDA-event busy share within 0.8-1.1x, and over its share of
+       device-kernel time (a torch.profiler trace of its steps), printed;
     3. pod L (priority 1, gpucores 50) joins while H runs: both throttled
        and L blocked within 3 sweeps; L's launches stand still for 5 s and
        H runs at 0.40-0.60x;
     4. H exits: L unblocked within 3 sweeps; once H's directory is gone,
-       released and at >= 0.8x;
+       released and at >= 0.95x;
     5. pod F alone under GPU_CORE_UTILIZATION_POLICY=force: never released,
        0.40-0.60x;
     6. the monitor's /nodeinfo, sweep latency, no context and no device
        memory; every region clean after its pod exits; under 120 s."""
     import grpc
 
-    from vtpu_torch import api
     from vtpu_torch.plugin import deviceplugin_pb2 as pb
     from vtpu_torch.plugin import dp_grpc, runtime
     from vtpu_torch.plugin.rm import replica_id
@@ -1703,6 +2178,15 @@ def monitor_phase(name: str, solo_img_s: float, step_ms: float, plugin,
         child = pods.pop(label)
         monitor.ask("delete_pod", name=child.pod_name)
         shutil.rmtree(os.path.dirname(child.cache))
+        # A card's HostCoreUtilization is the growth of its pods' summed
+        # busy time between two scrapes, so a region that leaves between
+        # them takes its busy time out of the sum and that scrape reads 0
+        # (the JAX monitor's rule too, ROADMAP queue 3): the next reading
+        # starts once the monitor's sweeps no longer list the pod.
+        within_sweeps(lambda: all(
+            dict(labels)["poduid"] != child.uid for labels in monitor.scrape(
+            ).get("vGPU_device_memory_usage_in_bytes", {})),
+            f"{label}'s region dropped by the monitor")
 
     def feedback(child: SmChild):
         with child.view() as view:
@@ -1719,11 +2203,11 @@ def monitor_phase(name: str, solo_img_s: float, step_ms: float, plugin,
             time.sleep(0.05)
         return time.monotonic() - t0
 
-    def utilization(child: SmChild, seconds: float):
+    def utilization(child: SmChild, seconds: float, case_name: str = "1.1"):
         """HostCoreUtilization over two scrapes UTIL_WINDOW_S apart while
-        child runs case 1.1 alone; (gauge share, the child's busy share,
+        child runs the case alone; (gauge share, the child's busy share,
         the run, NVML's utilization meanwhile)"""
-        child.send("run", seconds=seconds)
+        child.send("run", seconds=seconds, case=case_name)
         time.sleep(0.5)
         monitor.scrape()
         t0 = time.monotonic()
@@ -1733,7 +2217,7 @@ def monitor_phase(name: str, solo_img_s: float, step_ms: float, plugin,
         gauge = card_gauge(monitor.scrape(), "HostCoreUtilization",
                            chip.uuid) / 100.0
         run = child.read()
-        busy = run["calls"] * step_ms / 1e3 / run["wall_s"]
+        busy = run["calls"] * step_ms[case_name] / 1e3 / run["wall_s"]
         return gauge, busy, run, nvml
 
     used0, apps0 = int(smi("memory.used")[0]), compute_apps()
@@ -1755,7 +2239,8 @@ def monitor_phase(name: str, solo_img_s: float, step_ms: float, plugin,
                                "H alone released")
         gauge, busy, run, nvml = utilization(h, UTIL_WINDOW_S + 1.5)
         share = run["img_s"] / solo_img_s
-        reserved = h.ask("mem")["reserved"]
+        mem = h.ask("mem")
+        reserved, fp = mem["reserved"], mem["footprint"]["bytes"]
         time.sleep(1.5 * SWEEP_S)
         fams = monitor.scrape()
         usage = pod_gauge(fams, "vGPU_device_memory_usage_in_bytes", h.uid)
@@ -1769,27 +2254,35 @@ def monitor_phase(name: str, solo_img_s: float, step_ms: float, plugin,
               f"{solo_img_s:.1f}; HostCoreUtilization over "
               f"{UTIL_WINDOW_S:.0f} s {gauge:.4f} against its busy share "
               f"{busy:.4f} ({gauge / busy:.3f}x; NVML utilization {nvml}%); "
-              f"usage {usage:.0f} B vs memory_reserved {reserved} B (+"
-              f"{(usage - reserved) / MiB:.1f} MiB), limit {limit:.0f} B, "
+              f"usage {usage:.0f} B, of it the footprint {fp} B, vs "
+              f"memory_reserved {reserved} B (+"
+              f"{(usage - fp - reserved) / MiB:.1f} MiB), limit {limit:.0f} B, "
               f"card capacity {capacity:.0f} B, HostGPUMemoryUsage "
               f"{host_usage:.0f} B; on {name}", flush=True)
-        check(share >= 0.8, f"(j) H alone ran at {share:.3f}x")
+        check(share >= RELEASED_SHARE, f"(j) H alone ran at {share:.3f}x")
         check(0.8 <= gauge / busy <= 1.1,
               f"(j) H's utilization {gauge:.4f} vs busy {busy:.4f}")
         check(limit == quota, f"(j) limit gauge {limit}")
-        check(0 <= usage - reserved <= RESERVED_MARGIN,
-              f"(j) usage gauge {usage} vs reserved {reserved}")
+        check(0 <= usage - fp - reserved <= RESERVED_MARGIN,
+              f"(j) usage gauge {usage} less the footprint {fp} vs reserved "
+              f"{reserved}")
         check(capacity == chip.hbm_mb * MiB, f"(j) capacity {capacity}")
         check(host_usage == pod_usage, f"(j) HostGPUMemoryUsage "
               f"{host_usage} vs the pods' {pod_usage}")
         result = {"phase": "(j) node monitor", "h_release_s": lift_s,
                   "h_share": share, "h_util_gauge": gauge, "h_busy": busy,
-                  "h_nvml_util": nvml, "h_usage_minus_reserved":
-                  usage - reserved}
+                  "h_nvml_util": nvml, "h_footprint": fp,
+                  "h_usage_minus_footprint_minus_reserved":
+                      usage - fp - reserved}
 
-        # 2. pod U with no gpucores, alone (H idle)
+        # 2. pod U with no gpucores, alone (H idle); pod U2 (case 1.2) starts
+        # beside it and warms up before either is measured
         u = allocate("U", 0)
+        u2_start = time.perf_counter()
+        u2 = allocate("U2", 0)
         u.ask("step")
+        u2.ask("run", case="1.2", seconds=0.5)
+        u2_s = time.perf_counter() - u2_start
         gauge, busy, run, nvml = utilization(u, UTIL_WINDOW_S + 1.5)
         print(f"(j) 2. pod U with no SM limit alone: HostCoreUtilization "
               f"over {UTIL_WINDOW_S:.0f} s {gauge:.4f} against its busy "
@@ -1800,6 +2293,31 @@ def monitor_phase(name: str, solo_img_s: float, step_ms: float, plugin,
         result.update(u_util_gauge=gauge, u_busy=busy, u_nvml_util=nvml)
         u.close()
         gone("U")
+        u2_start = time.perf_counter()
+        gauge, busy, run, nvml = utilization(u2, UTIL_WINDOW_S + 1.5, "1.2")
+        kern = u2.ask("kernel_ms", case="1.2", steps=5)
+        kernel_busy = run["calls"] * kern["kernel_ms"] / 1e3 / run["wall_s"]
+        print(f"(j) 2b. pod U2, case 1.2 (host bound) with no SM limit alone: "
+              f"HostCoreUtilization over {UTIL_WINDOW_S:.0f} s {gauge:.4f} "
+              f"against its CUDA-event busy share {busy:.4f} "
+              f"({gauge / busy:.3f}x) and its device-kernel share "
+              f"{kernel_busy:.4f} ({gauge / kernel_busy:.3f}x; "
+              f"torch.profiler: {kern['kernel_ms']:.3f} ms of kernels in a "
+              f"{kern['wall_ms']:.3f} ms step); libvgpu.so's sampled spans "
+              f"busy {run['span_busy']:.4f} of their time at the run's end "
+              f"({run['span_samples']} samples in it); NVML utilization "
+              f"{nvml}%; {run['img_s']:.1f} img/s; on {name}", flush=True)
+        check(0.8 <= gauge / busy <= 1.1,
+              f"(j) U2's utilization {gauge:.4f} vs busy {busy:.4f}")
+        result.update(u2_util_gauge=gauge, u2_busy=busy,
+                      u2_kernel_busy=kernel_busy, u2_nvml_util=nvml,
+                      u2_kernel_ms=kern["kernel_ms"],
+                      u2_wall_ms=kern["wall_ms"],
+                      u2_span_busy=run["span_busy"],
+                      u2_span_samples=run["span_samples"])
+        u2.close()
+        gone("U2")
+        u2_s += time.perf_counter() - u2_start
 
         # 3. pod L joins while H runs
         lo = allocate("L", NODE_SM_LIMIT, CUDA_TASK_PRIORITY=1)
@@ -1852,7 +2370,7 @@ def monitor_phase(name: str, solo_img_s: float, step_ms: float, plugin,
               f"gone, released within {release_s:.2f} s; L at "
               f"{l_share:.3f}x; on {name}", flush=True)
         check(moved > still, "(j) L did not launch after H exited")
-        check(l_share >= 0.8, f"(j) L alone ran at {l_share:.3f}x")
+        check(l_share >= RELEASED_SHARE, f"(j) L alone ran at {l_share:.3f}x")
         result.update(l_unblock_s=unblock_s, l_release_s=release_s,
                       l_share=l_share)
         lo.close()
@@ -1882,17 +2400,20 @@ def monitor_phase(name: str, solo_img_s: float, step_ms: float, plugin,
         sweeps = sorted(monitor.ask("sweeps")["sweeps"])
         p50, top = sweeps[len(sweeps) // 2] * 1e3, sweeps[-1] * 1e3
         used2, apps2 = int(smi("memory.used")[0]), compute_apps()
-        took = time.perf_counter() - start
+        # pod U2 is this phase's addition: its time is accounted apart, and
+        # the steps the bound was set for are held to it
+        took = time.perf_counter() - start - u2_s
         print(f"(j) 6. the monitor: {len(sweeps)} sweeps, latency p50 "
               f"{p50:.3f} ms, max {top:.3f} ms; card memory used {used0} -> "
               f"{used1} MiB with the monitor alone ({used2} at the end), "
               f"compute processes {apps0} -> {apps1}; no torch/jax/vtpu "
               f"module; every region clean after its pod exited; the phase "
-              f"took {took:.1f} s; on {name}", flush=True)
+              f"took {took:.1f} s, and pod U2 {u2_s:.1f} s more; on {name}",
+              flush=True)
         check(took < MONITOR_PHASE_S, f"(j) took {took:.1f} s")
         result.update(sweeps=len(sweeps), sweep_p50_ms=p50,
                       sweep_max_ms=top, monitor_used_mib_delta=used1 - used0,
-                      phase_s=took)
+                      phase_s=took, u2_s=u2_s)
         monitor.stop()
         monitor = None
     finally:
@@ -1921,7 +2442,11 @@ NATIVE = [
                "cuGraphLaunch", "cuGraphLaunch_ptsz", "cuMemHostAlloc",
                "cuMemAllocHost_v2", "cuMemFreeHost", "cuMemHostRegister_v2",
                "cuMemHostUnregister", "cuCtxSynchronize",
-               "cuStreamSynchronize", "cuStreamSynchronize_ptsz"]},
+               "cuStreamSynchronize", "cuStreamSynchronize_ptsz",
+               "cuMemAllocManaged", "cuArrayCreate_v2", "cuArray3DCreate_v2",
+               "cuArrayDestroy", "cuMipmappedArrayCreate",
+               "cuMipmappedArrayDestroy", "cuDevicePrimaryCtxRetain",
+               "cuCtxCreate_v2", "cuCtxCreate_v3", "cuCtxCreate_v4"]},
     {"name": "libvgpucore.so", "route": "gcc", "source":
      "vtpu_torch/csrc/shared_region.c", "replaces":
      "lib/vtpu/shared_region.c:476"},
@@ -1957,22 +2482,28 @@ def main() -> int:
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.2f} s",
           flush=True)
     phases = [infer_phase(name), train_phase(name), sharded_phase(name)]
+    fills = fill_phase(name)
+    phases += fills
+    phases.append(neighbour_phase(name))
+    fp = fills[-1]["footprint"]["bytes"]
     for alloc_conf in ALLOCATORS:
         phases.append(quota_phase(name, "1.1", INFER_QUOTA, alloc_conf))
     for alloc_conf in ALLOCATORS:
         peak = phases[1]["peak_reserved_bytes"] if not alloc_conf \
             else alone_peak("1.2", alloc_conf)
-        quota = math.ceil(peak * (1 + TRAIN_HEADROOM) / GiB) * GiB
+        quota = math.ceil((peak + fp) * (1 + TRAIN_HEADROOM) / GiB) * GiB
         print(f"case 1.2 quota, {alloc_conf or 'default allocator'}: "
-              f"max_memory_reserved alone {peak} B + {TRAIN_HEADROOM:.0%}, "
-              f"rounded up to whole GiB: {quota} B", flush=True)
+              f"max_memory_reserved alone {peak} B + footprint {fp} B, + "
+              f"{TRAIN_HEADROOM:.0%}, rounded up to whole GiB: {quota} B",
+              flush=True)
         phases.append(dict(quota_phase(name, "1.2", quota, alloc_conf),
                            max_memory_reserved_alone=peak))
     phases += compute_phases(name)
     (solo,) = [p["unthrottled_img_s"] for p in phases
                if p["phase"] == "(c) case 1.1 at 50%"]
-    (step_ms,) = [p["no SM limit"] for p in phases
-                  if p["phase"] == "(b) case 1.1 unthrottled cost"]
+    step_ms = {p["phase"].split()[2]: p["no SM limit"] for p in phases
+               if p["phase"].startswith("(b) case ")}
+    phases += zoo_phase(name)
     phases += node_agent_phase(name, solo, step_ms)
     print(json.dumps({"card": name, "phases": phases}), flush=True)
     print(json.dumps({"kernels": [], "native": NATIVE}), flush=True)
@@ -1988,3 +2519,6 @@ if __name__ == "__main__":
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         sys.exit(1)
+    finally:
+        for d in _LOCK_DIR:
+            shutil.rmtree(d, ignore_errors=True)

@@ -563,7 +563,8 @@ def collect_same(cols):
     The JAX families are returned."""
     jfams, pfams = families(cols["jax"]), families(cols["port"])
     names = port_metrics.METRIC_NAMES
-    assert set(pfams) == {names[j] for j in jfams}
+    assert set(pfams) == ({names[j] for j in jfams}
+                          | set(port_metrics.PORT_ONLY_FAMILIES))
     for jname, jsamples in jfams.items():
         pname = names[jname]
         want = {(sname.replace(jname, pname, 1), labels): v
@@ -633,6 +634,23 @@ def test_collector_profile_families_match(tmp_path, clock):
     assert any(k[0] == "vTPUShimCallsiteLatency_bucket"
                for k in fams["vTPUShimCallsiteLatency"])
     close_all(regions, t)
+
+
+def test_collector_exports_unmeasured_footprints(tmp_path, clock):
+    """The port's one family of its own: per pod, the devices whose
+    footprint libvgpu.so does not re-read (the header's reserved2, which
+    the JAX shim leaves 0 and its monitor ignores)."""
+    t = Tenant(tmp_path, "uid3_0")
+    u = Tenant(tmp_path, "uid4_0")
+    with open(t.paths["port"], "r+b") as f:
+        f.seek(SharedRegionStruct.reserved2.offset)
+        f.write((2).to_bytes(4, "little"))
+    cols, regions, _ = collectors(tmp_path, clock)
+    fams = collect_same(cols)   # every JAX family still equal
+    port = families(cols["port"])
+    assert by(port, "vGPUPodFootprintUnmeasured", "poduid") == {
+        "uid3": 2.0, "uid4": 0.0}
+    close_all(regions, t, u)
 
 
 def test_collector_quarantined_region_zero_in_every_family(tmp_path, clock):

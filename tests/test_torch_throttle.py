@@ -10,6 +10,7 @@ feedback, pressure and launch counters the port writes are read back by the
 JAX package's ``RegionView``."""
 
 import json
+import math
 import os
 import select
 import subprocess
@@ -35,7 +36,7 @@ CHILD = textwrap.dedent(r"""
     cu = ctypes.CDLL("libcuda.so.1")
     vg = ctypes.CDLL(os.environ["LD_PRELOAD"])
     for name in ("mock_cuda_launches", "mock_cuda_graph_launches",
-                 "mock_cuda_capture_event_records"):
+                 "mock_cuda_capture_event_records", "mock_cuda_event_records"):
         getattr(cu, name).restype = c_ulong
     GPA2 = CFUNCTYPE(c_int, c_char_p, POINTER(c_void_p), c_int, c_uint64,
                      POINTER(c_int))
@@ -108,6 +109,20 @@ CHILD = textwrap.dedent(r"""
         out(n=n, mock=cu.mock_cuda_launches())
         if args[3:] == ["wait"]:
             sys.stdin.readline()
+    elif mode == "steady":  # per line of stdin: SECONDS of async launches
+        out(ready=True)
+        for request in sys.stdin:
+            e0, m0 = cu.mock_cuda_event_records(), cu.mock_cuda_launches()
+            t0 = time.monotonic()
+            burn(float(request), kernel_async)
+            # the events recorded while launching, before the sync ends
+            # the stream's span
+            events = cu.mock_cuda_event_records() - e0
+            wall = time.monotonic() - t0
+            ctx_sync()
+            vg.vgpu_flush_launches()
+            out(events=events, launches=cu.mock_cuda_launches() - m0,
+                wall=wall)
     elif mode == "long":  # one kernel, then a sync and a flush on a line
         assert kernel() == 0
         out(launched=True)
@@ -666,3 +681,45 @@ def test_unlimited_long_kernel_is_in_flight(tmp_path, libs):
     assert running == 1 and later == 0 and after == 0, (running, later,
                                                          after)
     assert 0.95 <= slot.launch_ns / (2500 * MS) <= 1.05, slot.launch_ns
+
+
+def test_released_pod_times_spans_not_launches(tmp_path, libs):
+    """A pod at SM limit 50 whose utilization_switch the monitor set runs
+    as a device with no limit does: 200 us kernels launched back to back
+    for 1 s record at most two events per 2 ms of launching (and two per
+    launch in the one span of 32 sampled for its busy fraction), not one
+    per launch (an event between two kernels is a device bubble), and its
+    busy time is charged within the unlimited test's bound of the mock's
+    (0.9-1.25x). When the switch drops, its launches take brackets again
+    (an event each) and the limit binds: at most 0.75x the released
+    launches (half the device, plus the bucket's burst)."""
+    kernel_ns = 200_000
+    env, cache = child_env(tmp_path, "released", MOCK_CUDA_KERNEL_NS=kernel_ns,
+                           **{api.ENV_SM_LIMIT: 50})
+    proc = spawn(env, "steady")
+    try:
+        assert line(proc)["ready"]
+        with JaxRegionView(cache) as view:
+            view.set_utilization_switch(1)
+            (before,) = view.procs()
+            released = ask(proc, "1.0")
+            (after,) = view.procs()
+            view.set_utilization_switch(0)
+            time.sleep(0.1)
+            limited = ask(proc, "1.0")
+        proc.communicate("", timeout=30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    assert released["hooked"] and released["launches"] > 1000, released
+    spans = 2 * math.ceil(released["wall"] / 0.002) + 2
+    sampled = 2 * math.ceil(released["launches"] / 32)
+    assert released["events"] <= spans + sampled, (released, spans, sampled)
+    assert released["events"] < 0.3 * released["launches"], released
+    busy = (after.launch_ns - before.launch_ns) / (
+        released["launches"] * kernel_ns)
+    assert 0.9 <= busy <= 1.25, (busy, released)
+    assert limited["events"] >= limited["launches"], limited
+    assert limited["launches"] <= 0.75 * released["launches"], (
+        limited, released)

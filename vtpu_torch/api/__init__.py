@@ -71,6 +71,10 @@ CONTAINER_VALIDATOR_PATH = "/usr/bin/vgpu-validator"
 # lock directory the interposer shares between a node's containers
 # (mounted by Allocate at the same path inside and out)
 LOCK_DIR = "/tmp/vgpulock"
+# where libvgpu.so takes that lock when it is not LOCK_DIR (a test's own
+# directory); the interposer serialises its processes' first contexts on a
+# card there, to tell its own NVML process entry from its neighbours'
+ENV_LOCK_DIR = "VGPU_LOCK_DIR"
 
 # mesh env of a slice-gang member and the source node of a migrated pod
 # (vtpu/api/__init__.py:60-82, same names): set by Allocate from the pod's

@@ -226,6 +226,10 @@ typedef struct vtpu_shared_region {
    * resets the buckets so credit/debt banked while unthrottled cannot
    * leak into the throttled regime */
   int32_t util_prev_switch;
+  /* libvgpu.so: devices of the container's processes whose footprint it
+   * does not re-read (NVML unavailable, or unable to tell the process
+   * apart), counted at each one's first context; the JAX shim leaves it 0.
+   * The name stays, so the layout and field names match the JAX ABI. */
   int32_t reserved2;
 
   /* v5 header-integrity plane: the host monitor mmaps region files it

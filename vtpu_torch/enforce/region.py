@@ -413,7 +413,8 @@ class RegionSnapshot:
                  "_used", "_total_launches", "_busy_ns", "_uuids",
                  "_procs", "header_heartbeat_ns", "prof", "pressure",
                  "prof_enabled", "prof_sample", "usage_epoch",
-                 "_host_limit", "_host_used", "host_oom_events")
+                 "_host_limit", "_host_used", "host_oom_events",
+                 "footprint_unmeasured")
 
     def __init__(self, struct: SharedRegionStruct, path: str = ""):
         _check_header(struct, path)
@@ -474,6 +475,9 @@ class RegionSnapshot:
         self.prof = prof
         self.pressure = {name: int(struct.prof_pressure[i])
                          for i, name in enumerate(PROF_PRESSURE_NAMES)}
+        # libvgpu.so's count of devices whose footprint it does not re-read
+        # (the header's reserved2; the JAX shim leaves it 0)
+        self.footprint_unmeasured = int(struct.reserved2)
 
     def hbm_limit(self, dev: int = 0) -> int:
         return self._hbm_limits[dev]
@@ -708,6 +712,13 @@ class RegionView:
         """The pressure counters by name (:data:`PROF_PRESSURE_NAMES`)."""
         return {name: int(self._s.prof_pressure[i])
                 for i, name in enumerate(PROF_PRESSURE_NAMES)}
+
+    @property
+    def footprint_unmeasured(self) -> int:
+        """Devices of the container's processes whose footprint libvgpu.so
+        does not re-read, counted at each one's first context (the header's
+        reserved2)."""
+        return int(self._s.reserved2)
 
     # -- the limits the monitor writes -------------------------------------
     def set_limit_checked(self, value: int, dev: int = 0) -> Tuple[int, int]:

@@ -178,6 +178,60 @@ class Enforcer:
         if self.interposed:
             ctypes.CDLL(None).vgpu_flush_launches()
 
+    def footprint(self, dev: int = 0) -> dict:
+        """libvgpu.so's device-footprint charge of this process on ``dev``
+        (the memory the driver holds for it that no allocation call
+        reached): how it was measured (``mode``: "unseen", "nvml_pid"
+        re-read every 100 ms, "context" its context's size at creation,
+        "none"), NVML's pid of the process, the bytes charged, the
+        re-reads' count, total and longest ns, and in "context" mode the
+        card's growth across the creation and the node's context size it
+        was held to (0: none on record). Zeros without the interposer."""
+        out = (ctypes.c_uint64 * 8)()
+        fn = getattr(ctypes.CDLL(None), "vgpu_footprint", None) \
+            if self.interposed else None
+        if fn is not None:
+            fn.restype = None
+            fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+            fn(dev, out)
+        mode = {2: "nvml_pid", 3: "context", 4: "none"}.get(int(out[0]),
+                                                            "unseen")
+        return {"mode": mode, "nvml_pid": int(out[1]), "bytes": int(out[2]),
+                "reads": int(out[3]), "read_ns": int(out[4]),
+                "read_max_ns": int(out[5]), "growth": int(out[6]),
+                "node_context": int(out[7])}
+
+    def kernel_keys(self) -> dict:
+        """How libvgpu.so keyed the kernels it charged on a limited device:
+        charges by an argument key seen before, by a new one (charged its
+        shape's least time), by the shape's key alone, past a full shape
+        table (as measured), and the functions with and without an
+        argument layout. Zeros without the interposer."""
+        out = (ctypes.c_uint64 * 6)()
+        fn = getattr(ctypes.CDLL(None), "vgpu_kernel_keys", None) \
+            if self.interposed else None
+        if fn is not None:
+            fn.restype = None
+            fn.argtypes = [ctypes.c_void_p]
+            fn(out)
+        names = ("seen", "new", "shape_only", "table_full", "layouts",
+                 "no_layout")
+        return dict(zip(names, (int(v) for v in out)))
+
+    def span_busy(self) -> dict:
+        """libvgpu.so's sampled spans (one in each 32, at a random place,
+        on a card with no SM limit): how many were measured and the recent ones' busy fraction,
+        by which every span's charge is scaled. Zeros without the
+        interposer."""
+        out = (ctypes.c_uint64 * 2)()
+        fn = getattr(ctypes.CDLL(None), "vgpu_span_busy", None) \
+            if self.interposed else None
+        if fn is not None:
+            fn.restype = None
+            fn.argtypes = [ctypes.c_void_p]
+            fn(out)
+        return {"samples": int(out[0]), "busy_fraction": out[1] / 1e6}
+
     def used(self, dev: int = 0) -> int:
         return self.region.used(dev) if self.region else 0
 

@@ -10,6 +10,11 @@ same architecture: module paths join with ".", and each leaf maps by name:
 - BatchNorm ``scale`` -> ``weight``, ``bias`` -> ``bias``, and from
   ``batch_stats`` ``mean`` -> ``running_mean``, ``var`` -> ``running_var``.
 
+Every model of the registry carries across by this map alone: VGG's
+``fc1`` rows are in flax's (h, w, c) order because the port flattens NHWC
+(models/vgg.py), and the LSTM's scan-lifted cells broadcast their
+parameters over time, so ``lstm{i}/gates`` is one Dense kernel and bias.
+
 ``momentum_from_optax(opt_state, model)`` carries the momentum of
 ``optax.sgd(lr, momentum)`` (the ``trace`` of its TraceState, a tree shaped
 like the parameters) across with the same map, and

@@ -3,8 +3,9 @@ vtpu/models/registry.py:18-52).
 
 The 10 cases mirror the reference's published matrix (reference
 README.md:240-252); shapes are (H, W, C) for vision and (seq, feat) for the
-LSTM, after the batch. ``MODELS`` holds the models ported so far; the other
-cases stay in the matrix as data.
+LSTM, after the batch. ``case_model`` builds a case's model with the
+arguments its shape sets: VGG's input size (``fc1``'s width follows from
+it) and the LSTM's input features.
 """
 
 from __future__ import annotations
@@ -12,11 +13,17 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, Dict, Tuple
 
+from .deeplab import deeplab_v3
+from .lstm import lstm
 from .resnet import resnet_v2_50, resnet_v2_152
+from .vgg import vgg16
 
 MODELS: Dict[str, Callable] = {
     "resnet_v2_50": resnet_v2_50,
     "resnet_v2_152": resnet_v2_152,
+    "vgg16": vgg16,
+    "deeplab_v3": deeplab_v3,
+    "lstm": lstm,
 }
 
 
@@ -46,3 +53,14 @@ BENCH_CASES = [
     BenchCase("5.1", "lstm", "inference", 100, (1024, 300), 10),
     BenchCase("5.2", "lstm", "training", 10, (1024, 300), 10),
 ]
+
+
+def case_model(case: BenchCase, dtype, device=None):
+    """``case``'s model at its published shape."""
+    kw = {}
+    if case.model == "vgg16":
+        kw["input_size"] = case.shape[0]
+    elif case.model == "lstm":
+        kw["in_features"] = case.shape[-1]
+    return get_model(case.model, num_classes=case.classes, dtype=dtype,
+                     device=device, **kw)

@@ -32,19 +32,36 @@ from .norm import BatchNorm
 
 
 class Conv2d(nn.Conv2d):
-    """Bias-free conv with float32 weights, computed in ``dtype``."""
+    """Conv with float32 weights (and bias, with ``bias``), computed in
+    ``dtype``."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int, *,
                  stride: int = 1, padding: int = 0, dilation: int = 1,
-                 dtype: torch.dtype = torch.bfloat16, device=None):
+                 bias: bool = False, dtype: torch.dtype = torch.bfloat16,
+                 device=None):
         super().__init__(in_channels, out_channels, kernel, stride=stride,
-                         padding=padding, dilation=dilation, bias=False,
+                         padding=padding, dilation=dilation, bias=bias,
                          device=device, dtype=torch.float32)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._conv_forward(x.to(self.compute_dtype),
-                                  self.weight.to(self.compute_dtype), None)
+        dt = self.compute_dtype
+        bias = self.bias.to(dt) if self.bias is not None else None
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+
+
+class Linear(nn.Linear):
+    """flax ``nn.Dense``: float32 parameters, computed in ``dtype``."""
+
+    def __init__(self, in_features: int, out_features: int, *,
+                 dtype: torch.dtype = torch.bfloat16, device=None):
+        super().__init__(in_features, out_features, device=device,
+                         dtype=torch.float32)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
 class BottleneckV2(nn.Module):

@@ -55,9 +55,11 @@ def _lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
 def init_model(model: nn.Module, example_x: torch.Tensor,
                generator: Optional[torch.Generator] = None) -> nn.Module:
     """Initialise ``model`` in place with flax's default distributions and
-    run it once on ``example_x`` (NHWC, as flax's ``init`` traces it).
+    run it once on ``example_x`` (NHWC, or ``[b, T, F]`` for the LSTM, as
+    flax's ``init`` traces it).
 
-    Conv and Dense kernels: lecun_normal; Dense biases: zeros; BatchNorm:
+    Conv and Dense kernels (the LSTM cell's fused gate kernel too):
+    lecun_normal; conv and Dense biases: zeros; BatchNorm:
     scale ones, bias zeros, running mean zeros, running var ones. The draws
     come from ``generator`` on the CPU and are copied to the model's device,
     so a seed gives the same weights on every device."""
@@ -77,17 +79,34 @@ def init_model(model: nn.Module, example_x: torch.Tensor,
     return model
 
 
+def to_model_layout(x: torch.Tensor) -> torch.Tensor:
+    """An image batch in the JAX package's NHWC layout as the NCHW the
+    port's vision models take; anything else (the LSTM's ``[b, T, F]``)
+    as it is. The permute is a view, so a contiguous NHWC batch reaches
+    the convs as a channels_last tensor without a copy."""
+    return x.permute(0, 3, 1, 2) if x.dim() == 4 else x
+
+
+def _forward(model: nn.Module, x: torch.Tensor,
+             generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``model`` on a batch in the JAX layout; a model that draws dropout
+    (``takes_generator``) draws from ``generator``."""
+    if getattr(model, "takes_generator", False):
+        return model(to_model_layout(x), generator=generator)
+    return model(to_model_layout(x))
+
+
 def make_infer_step(model: nn.Module) -> Callable[[torch.Tensor],
                                                   torch.Tensor]:
-    """Inference step over NHWC input (the JAX package's layout) returning
-    float32 logits. Puts ``model`` in eval mode: BatchNorm uses its running
-    statistics. The NHWC -> NCHW permute is a view, so a contiguous NHWC
-    batch reaches the convs as a channels_last tensor without a copy."""
+    """Inference step over a batch in the JAX package's layout (NHWC
+    images, ``[b, T, F]`` sequences) returning float32 logits. Puts
+    ``model`` in eval mode: BatchNorm uses its running statistics and
+    dropout is off."""
     model.eval()
 
     def step(x: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
-            return model(x.permute(0, 3, 1, 2))
+            return model(to_model_layout(x))
 
     return step
 
@@ -116,11 +135,13 @@ def make_train_step(model: nn.Module,
     """SGD-with-momentum train step (vtpu/models/train.py:80-107); returns
     ``(step, optimizer)``.
 
-    ``step(x_nhwc, y, generator=None)`` puts the model in train mode
+    ``step(x, y, generator=None)`` puts the model in train mode
     (BatchNorm takes batch statistics and updates its running ones),
     computes the float32 cross-entropy, backpropagates, steps the optimizer
-    and returns the detached loss. ``generator`` stands where the reference
-    step takes its dropout key; ResNet draws nothing from it."""
+    and returns the detached loss. ``x`` is in the JAX layout (NHWC images,
+    ``[b, T, F]`` sequences). ``generator`` stands where the reference
+    step takes its dropout key: VGG's dropout draws its masks from it (a
+    generator on the batch's device); the other models draw nothing."""
     _check_batch_stats(model, has_batch_stats)
     optimizer = optimizer if optimizer is not None \
         else default_optimizer(model.parameters())
@@ -129,7 +150,7 @@ def make_train_step(model: nn.Module,
              generator: Optional[torch.Generator] = None) -> torch.Tensor:
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        loss = cross_entropy(model(x.permute(0, 3, 1, 2)), y)
+        loss = cross_entropy(_forward(model, x, generator), y)
         loss.backward()
         optimizer.step()
         return loss.detach()
@@ -229,7 +250,7 @@ def build_sharded_train_step(model: nn.Module, example_x: torch.Tensor,
         optimizer.zero_grad(set_to_none=True)
         full = {n: p.redistribute(mesh, whole).to_local(
             grad_placements=grad_back) for n, p in params.items()}
-        logits = functional_call(model, full, (xs.permute(0, 3, 1, 2),))
+        logits = functional_call(model, full, (to_model_layout(xs),))
         loss = cross_entropy(logits, ys)
         (loss / dp).backward()
         optimizer.step()

@@ -93,6 +93,10 @@ METRIC_NAMES = {
     "vTPUNodeDegraded": "vGPUNodeDegraded",
 }
 
+#: the port's families with no JAX counterpart (the JAX shim has no device
+#: footprint to leave unmeasured)
+PORT_ONLY_FAMILIES = ("vGPUPodFootprintUnmeasured",)
+
 # One observation per sweep (scan + snapshot + feedback + GC). Buckets
 # span "a handful of regions" (~1ms) to "the sweep is starving the 5s
 # cadence" (seconds).
@@ -361,6 +365,13 @@ class MonitorCollector(Collector):
             "host allocations rejected by the host quota plus force "
             "charges that pushed usage over it",
             labels=["podnamespace", "podname", "poduid"])
+        footprint_unmeasured = CounterMetricFamily(
+            "vGPUPodFootprintUnmeasured",
+            "devices of the pod's processes whose device footprint (memory "
+            "the driver holds outside the allocation calls) libvgpu.so does "
+            "not re-read: NVML unavailable, or unable to tell the process "
+            "apart (then only its context's size at creation is charged)",
+            labels=["podnamespace", "podname", "poduid"])
 
         snapset = self._snapshot_set()
         quarantined.add_metric(
@@ -418,6 +429,8 @@ class MonitorCollector(Collector):
                                       float(snap.host_limit()))
             host_ooms.add_metric([ns, pname, uid],
                                  float(snap.host_oom_events))
+            footprint_unmeasured.add_metric(
+                [ns, pname, uid], float(snap.footprint_unmeasured))
             # same freshness window as the feedback loop: a SIGKILLed
             # process's tombstone slot must not gauge as in-flight forever
             inflight.add_metric(
@@ -478,7 +491,8 @@ class MonitorCollector(Collector):
         fams = [host_cap, host_mem, host_util, usage, limit, launches,
                 ooms, inflight, snap_age, quarantined, corrupt,
                 stale, hb_age, pod_limit, pod_resize_gen,
-                host_used_fam, host_limit_fam, host_ooms]
+                host_used_fam, host_limit_fam, host_ooms,
+                footprint_unmeasured]
 
         # -- node-level profile rollup ------------------------------------
         if PROFILE_EXPORT:

@@ -48,7 +48,7 @@ _REGION = ["shared_region.c", "shared_region.h", "prof_hook.h"]
 TARGETS: Dict[str, Tuple[List[str], List[str], List[str]]] = {
     "libvgpucore.so": (["shared_region.c"], _REGION[1:], []),
     "libvgpu.so": (["libvgpu.c", "shared_region.c"],
-                   _REGION[1:] + ["cuda_min.h"], ["-ldl"]),
+                   _REGION[1:] + ["cuda_min.h"], ["-ldl", "-lm"]),
     os.path.join("mock_cuda", "libcuda.so.1"): (
         ["mock_cuda.c"], ["cuda_min.h"], ["-Wl,-soname,libcuda.so.1"]),
     os.path.join("mock_nvml", "libnvidia-ml.so.1"): (
