@@ -182,7 +182,19 @@ built:
    its exit, the leakage is cross-checked, the headroom canary's
    under-count is under 2% of the quotas, and ``tight_met`` holds; the
    phase prints its time;
-13. prints the port's native components (the JAX package has no TPU kernel,
+13. phase (m), the bench (``python -m vtpu_torch.bench``, each mode a
+   command as a user runs it, from a temp dir): the default mode (case
+   1.1 at batch 50) within 0.9-1.1x phase (b)'s img/s alone, its MFU in
+   (0, 1]; ``--profile --cases 1.1`` (every libvgpu.so call timed): its
+   ``execute`` calls within 1% of the child's region launches, ``buf_alloc``
+   calls, the top cost centers printed; ``--parity --cases 1.1 --reps 3``
+   against that profile as its baseline (``VTPU_PARITY_P50X=0.5``: a
+   self-check that the profile half runs): the shim/native best-rep ratio
+   at least 0.95; ``--interleave --quick --cases 1.1,3.1``: both halves of
+   both cases, nothing written; then case 1.1 under libvgpu.so with the
+   profile on and off (``VTPU_PROFILE=0``), reps in turns, the cost
+   printed, not gated; the phase prints its time;
+14. prints the port's native components (the JAX package has no TPU kernel,
    so ``kernels`` is empty) and, last, ``{"ok": true, "device": ...}``.
 
 Any failed phase ends the run with a non-zero exit and no final line. So
@@ -1094,13 +1106,13 @@ class SmChild:
 
     def __init__(self, label: str, interposed: bool = True, sm_limit=None,
                  priority=None, host_limit=None, given=None,
-                 quota=INFER_QUOTA, wait: bool = True):
+                 quota=INFER_QUOTA, wait: bool = True, extra_env=None):
         """``given`` = (env, region file) replaces the env this class
         builds (phases (i) and (j): the env of an Allocate response, given
         the run's lock directory, which Allocate mounts from the node);
-        ``quota`` None runs with no memory limit. Unless ``wait`` is False
-        (then call :meth:`ready`), returns once the child's context is
-        made."""
+        ``quota`` None runs with no memory limit; ``extra_env`` is added to
+        the env. Unless ``wait`` is False (then call :meth:`ready`),
+        returns once the child's context is made."""
         self.label = label
         self.context_only = False
         if given is not None:
@@ -1117,6 +1129,7 @@ class SmChild:
                            ("CUDA_HOST_MEMORY_LIMIT", host_limit)):
             if value is not None:
                 env[key] = str(value)
+        env.update(extra_env or {})
         self.errf = open(os.path.join(self.tmp, "child.err"), "w+")
         self.proc = subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--sm-child"],
@@ -2723,6 +2736,174 @@ def northstar_phase(name: str) -> list:
             {"phase": "(l) time", "phase_s": took}]
 
 
+# ------------------------------------------------------------ (m) the bench.
+# python -m vtpu_torch.bench in its modes, each a command as a user runs it
+BENCH_TIMEOUT_S = 300
+# the default mode's case 1.1 img/s against phase (b)'s alone
+BENCH_RATE_BAND = (0.9, 1.1)
+# the profile's execute calls against the child's region launch count
+PROFILE_LAUNCHES_TOL = 0.01
+# the parity run's execute p50 may be at most 2x the profile run's minutes
+# earlier on the same tree: a self-check that the profile half runs, not a
+# speed-up claim (bench.py's 3x is against a baseline before a rebuild)
+PARITY_P50X = "0.5"
+# the profiling cost: timings of case 1.1 under libvgpu.so, profile on
+# (every call timed) and off, in turns
+COST_REPS = 3
+
+
+def bench_cmd(name: str, label: str, args: list, tmp: str,
+              **env_extra) -> tuple:
+    """``python -m vtpu_torch.bench *args`` from ``tmp`` (nothing is
+    written to the checkout): (stdout lines, stderr). Fails on a non-zero
+    exit."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("CUDA_DEVICE_", "CUDA_DISABLE", "LD_PRELOAD",
+                                "PYTORCH_CUDA_ALLOC_CONF", "VTPU_"))}
+    env["PYTHONPATH"] = ROOT
+    env.update(env_extra)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "vtpu_torch.bench", *args],
+                          env=env, cwd=tmp, capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT_S)
+    took = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    print(f"(m) {label}: `python -m vtpu_torch.bench {' '.join(args)}` rc "
+          f"{proc.returncode} in {took:.1f} s; on {name}", flush=True)
+    check(proc.returncode == 0, f"(m) {label}: rc {proc.returncode}:\n"
+          f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return lines, proc.stderr
+
+
+def profile_children() -> dict:
+    """Two case 1.1 --sm-children under libvgpu.so (12 GiB, no SM limit):
+    the profile on (every call timed) and off; started, not waited for."""
+    return {"on": SmChild("profile on", wait=False, extra_env={
+                api.ENV_PROFILE: "1", api.ENV_PROFILE_SAMPLE: "1"}),
+            "off": SmChild("profile off", wait=False,
+                           extra_env={api.ENV_PROFILE: "0"})}
+
+
+def profile_cost(name: str, children: dict) -> dict:
+    """Case 1.1's ms/step (CUDA events, as phase (b)) in ``children``, in
+    turns: the best of each and the cost of the profile."""
+    try:
+        for child in children.values():
+            child.ready()
+        ms = {k: [] for k in children}
+        for _ in range(COST_REPS):
+            for label in ("off", "on"):
+                ms[label].append(children[label].ask("time",
+                                                     case="1.1")["ms"])
+    finally:
+        for child in children.values():
+            child.close()
+    best = {k: min(v) for k, v in ms.items()}
+    cost = best["on"] / best["off"] - 1
+    print(f"(m) profiling cost, case 1.1 under libvgpu.so, ms/step (CUDA "
+          f"events, {STEPS['1.1']} steps), best of {COST_REPS} in turns: "
+          f"VTPU_PROFILE=0 {best['off']:.3f}, VTPU_PROFILE=1 (every call "
+          f"timed) {best['on']:.3f}: {cost:+.2%} (printed, not gated); on "
+          f"{name}", flush=True)
+    return {"ms": ms, "best_ms": best, "cost": cost}
+
+
+def bench_phase(name: str, alone_ms: float) -> dict:
+    """Phase (m): ``python -m vtpu_torch.bench`` in its modes on case 1.1
+    (and 3.1 in the interleaved smoke); see the module docstring."""
+    start = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    alone = CASES["1.1"].batch / (alone_ms / 1e3)
+    tmp = tempfile.mkdtemp(prefix="vgpu-smoke-bench-")
+    res = {"phase": "(m) bench"}
+    cost_children = {}
+    try:
+        lines, _ = bench_cmd(name, "default", [], tmp)
+        flag = json.loads(lines[-1])
+        ratio = flag["value"] / alone
+        print(f"(m) default: {flag['metric']} {flag['value']} img/s "
+              f"(spread {flag['spread']}), {ratio:.3f}x phase (b)'s "
+              f"{alone:.1f} img/s alone; MFU {flag['mfu']}; vs the V100 "
+              f"nominal {flag['vs_baseline']}; on {name}", flush=True)
+        res["default"] = dict(flag, vs_alone=ratio)
+        check(flag["metric"].endswith("_imgs_per_sec"),
+              f"(m) default: {flag['metric']}")
+        check(BENCH_RATE_BAND[0] <= ratio <= BENCH_RATE_BAND[1],
+              f"(m) default: {ratio:.3f}x phase (b)'s img/s")
+        check(0 < flag["mfu"] <= 1, f"(m) default: MFU {flag['mfu']}")
+
+        prof_json = os.path.join(tmp, "profile.json")
+        lines, _ = bench_cmd(name, "profile",
+                             ["--profile", "--cases", "1.1",
+                              "--profile-json", prof_json], tmp)
+        with open(prof_json) as f:
+            data = json.load(f)
+        agg, launches = data["cases"]["1.1"], data["region_launches"]["1.1"]
+        cs = agg["callsites"]
+        top = [t for t in lines if t.startswith("top shim cost centers:")]
+        ex = cs.get("execute", {})
+        print(f"(m) profile, case 1.1: "
+              + "; ".join(f"{k} {c['calls']} calls, {c['errors']} err, p50 "
+                          f"{c['p50_us']} us, p99 {c['p99_us']} us, "
+                          f"{c['est_total_ms']} ms ({c['share_pct']}%)"
+                          for k, c in cs.items())
+              + f"; shim time {agg['shim_total_ms']} ms; region launches "
+              f"{launches}; {top[0] if top else 'no top cost centers'}; on "
+              f"{name}", flush=True)
+        res["profile"] = {"callsites": {k: {f: c[f] for f in (
+            "calls", "errors", "bytes", "p50_us", "p99_us", "est_total_ms",
+            "share_pct")} for k, c in cs.items()},
+            "shim_total_ms": agg["shim_total_ms"], "region_launches": launches}
+        check(launches > 0 and abs(ex.get("calls", 0) / launches - 1)
+              <= PROFILE_LAUNCHES_TOL, f"(m) profile: {ex.get('calls')} "
+              f"execute calls against {launches} region launches")
+        check(cs.get("buf_alloc", {}).get("calls", 0) > 0,
+              "(m) profile: no buf_alloc call")
+        check(bool(top), "(m) profile: no top cost centers printed")
+
+        lines, err = bench_cmd(name, "parity",
+                               ["--parity", "--cases", "1.1", "--reps", "3",
+                                "--profile-baseline", prof_json], tmp,
+                               VTPU_PARITY_P50X=PARITY_P50X)
+        parity = json.loads(lines[-1])
+        for t in err.splitlines():
+            if t.startswith("[parity]"):
+                print(f"(m) {t}", flush=True)
+        res["parity"] = parity
+        check(parity["pass"] and parity["ratios"].get("1.1", 0) >= 0.95,
+              f"(m) parity: {parity}")
+
+        # the profiling cost's children make their contexts meanwhile: the
+        # interleaved smoke is not timed
+        cost_children = profile_children()
+        lines, err = bench_cmd(name, "interleave",
+                               ["--interleave", "--quick", "--cases",
+                                "1.1,3.1"], tmp)
+        halves = [t.strip() for t in err.splitlines()
+                  if t.strip().startswith(("[native]", "[shim]"))]
+        for t in halves:
+            print(f"(m) interleave {t}", flush=True)
+        res["interleave"] = halves
+        check(sorted(t.split()[0] + t.split()[2] for t in halves) == [
+            "[native]1.1", "[native]3.1", "[shim]1.1", "[shim]3.1"],
+            f"(m) interleave: {halves}")
+        check(not any(f.startswith("BENCH") for f in os.listdir(tmp)),
+              "(m) interleave at --quick wrote a matrix file")
+
+        res["profile_cost"] = profile_cost(name, cost_children)
+    finally:
+        for child in cost_children.values():  # a check failed meanwhile
+            if child.proc.poll() is None:
+                child.proc.kill()
+                child.proc.wait(timeout=60)
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["phase_s"] = time.perf_counter() - start
+    print(f"(m) the phase took {res['phase_s']:.1f} s; on {name}",
+          flush=True)
+    return res
+
+
 NATIVE = [
     {"name": "libvgpu.so", "route": "gcc", "source":
      "vtpu_torch/csrc/libvgpu.c", "replaces": "lib/vtpu/libvtpu.c:1007",
@@ -2803,6 +2984,9 @@ def main() -> int:
     phases += zoo_phase(name)
     phases += node_agent_phase(name, solo, step_ms)
     phases += northstar_phase(name)
+    (b11,) = [p for p in phases
+              if p["phase"] == "(b) case 1.1 unthrottled cost"]
+    phases.append(bench_phase(name, b11["alone"]))
     print(json.dumps({"card": name, "phases": phases}), flush=True)
     print(json.dumps({"kernels": [], "native": NATIVE}), flush=True)
     print(json.dumps({"ok": True, "device": {

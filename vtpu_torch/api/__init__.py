@@ -153,6 +153,28 @@ ENV_TRACE_JOURNAL_MAX_KB = "VTPU_TRACE_JOURNAL_MAX_KB"
 HOST_CONTAINERS_DIR = "/usr/local/vgpu/containers"
 
 # --------------------------------------------------------------------------
+# The interposer's profile plane and the bench harness (vtpu_torch/bench;
+# bench.py's names, so one deployment's values serve both vendors)
+# --------------------------------------------------------------------------
+
+# shared_region.c: "0" turns the callsite profile off (default on); the
+# 1-in-N latency sampling period of each thread (default 64)
+ENV_PROFILE = "VTPU_PROFILE"
+ENV_PROFILE_SAMPLE = "VTPU_PROFILE_SAMPLE"
+# bench: "mock" runs the models on the CPU over the mock libcuda.so.1 (the
+# default runs on the card, and fails without one); set in the children the
+# harness starts; the shim child's device-memory quota (default 12g); "1"
+# runs the shim rep before the native one in each interleaved pair
+ENV_BENCH_BACKEND = "VTPU_BENCH_BACKEND"
+ENV_BENCH_CHILD = "VTPU_BENCH_CHILD"
+ENV_BENCH_QUOTA = "VTPU_BENCH_QUOTA"
+ENV_BENCH_SHIM_FIRST = "VTPU_BENCH_SHIM_FIRST"
+# bench --parity: the least shim/native best-rep ratio (default 0.95) and
+# the least execute-p50 speedup against the profile baseline (default 3)
+ENV_PARITY_MIN = "VTPU_PARITY_MIN"
+ENV_PARITY_P50X = "VTPU_PARITY_P50X"
+
+# --------------------------------------------------------------------------
 # Files in a container's region directory (<podUID>_<n>/), the port's names
 # for vtpu.cache and its sidecars (vtpu/contracts.py's durable files)
 # --------------------------------------------------------------------------

@@ -296,7 +296,8 @@ class MonitorCollector(Collector):
             labels=["podnamespace", "podname", "poduid"])
         cs_lat = HistogramMetricFamily(
             "vGPUShimCallsiteLatency",
-            "shim-side latency of one intercepted PJRT callsite class "
+            "libvgpu.so-side latency of one intercepted CUDA driver "
+            "callsite class "
             "in seconds (log2 buckets from the shared-region profile "
             "block; counts cover the 1-in-N latency-sampled events — "
             "vGPUShimCallsiteCalls has the exact volumes), aggregated "
@@ -304,13 +305,13 @@ class MonitorCollector(Collector):
             labels=["callsite"])
         cs_calls = CounterMetricFamily(
             "vGPUShimCallsiteCalls",
-            "intercepted PJRT calls per callsite class (exact, "
+            "intercepted CUDA driver calls per callsite class (exact, "
             "unsampled), aggregated over this node's regions",
             labels=["callsite"])
         cs_errors = CounterMetricFamily(
             "vGPUShimCallsiteErrors",
-            "failed intercepted PJRT calls per callsite class (quota "
-            "rejections + real-plugin errors)",
+            "failed intercepted CUDA driver calls per callsite class "
+            "(quota rejections + libcuda errors)",
             labels=["callsite"])
         pressure = CounterMetricFamily(
             "vGPUShimQuotaPressure",
