@@ -9,7 +9,7 @@ built:
 1. prints the card (``nvidia-smi`` name and power limit) and the
    torch/CUDA versions;
 2. builds the native libraries (vtpu_torch/native.py: libvgpucore.so,
-   libvgpu.so) with gcc;
+   libvgpu.so) with gcc, beside phases 3-5, which load none of them;
 3. case 1.1 phase: ai-benchmark case 1.1, ResNet-V2-50 inference at batch
    50, 346x346x3, 1000 classes, bf16 compute with f32 parameters,
    channels_last, weights from a seeded generator. Warm-up, then timed
@@ -32,7 +32,11 @@ built:
    group of one rank, from the same weights and batch as the plain step,
    in bf16 and in f32 (TF32 off): in f32 the loss within 1e-4 relative
    and the whole update within relative L2 5e-2 of the plain step's, in
-   bf16 the loss within 5e-2; then ``vtpu_torch.dryrun_multichip(1)``;
+   bf16 the loss within 5e-2. Once case 1.2's steps are timed (phase 4),
+   beside the rest of phases 4 and 5, which time nothing:
+   ``vtpu_torch.dryrun_multichip(1)`` and case 1.2's peak
+   ``max_memory_reserved()`` alone under the two other allocators (phase
+   7), each a process of its own outside the interposer;
 6. F1 fill phase: at a 3 GiB and a 12 GiB quota a child under
    ``libvgpu.so`` allocates 64 MiB at a time until refused. libvgpu.so
    charges the process's footprint (the memory the driver holds for it
@@ -59,12 +63,18 @@ built:
    shows beyond the region's charge is at most 2% of the quota, and the
    charge beyond the card's growth at most 5% (so a blanket allowance
    fails); the first step's time and the first launches' cost are printed;
+   Phases 6 and 7 run one child on the card at a time; each next child
+   (and phase 8's children after the last) is started ahead of its turn
+   and waits, before its first CUDA call, for the parent to read the card
+   and send "go" (``VGPU_SMOKE_HOLD``), so its interpreter loads while the
+   child before it runs;
 7. quota phases, for case 1.1 (a 12 GiB quota) and case 1.2, each under
    the three PyTorch allocators (the default caching allocator,
    ``expandable_segments:True``, ``backend:cudaMallocAsync``). Case 1.2's
    quota under an allocator is its peak ``max_memory_reserved()`` alone
    under that allocator (phase 4 for the default one, a child without the
-   interposer for the others) plus the footprint charge of phase 6, plus
+   interposer for the others, phase 5) plus the footprint charge of phase 6,
+   plus
    25%, rounded up to whole GiB:
    a child started with ``LD_PRELOAD=libvgpu.so`` and its own region file
    calls ``vtpu_torch.enforce.install()`` and runs the case's steps; it
@@ -80,8 +90,11 @@ built:
    region's charge (unaccounted), is at most 2% of the quota, and the
    charge less the growth (over-charged) at most 5%;
 8. compute-plane phases, each in children with their own region file
-   (``--sm-child``, one JSON command and reply per line), every number
-   printed on its own line:
+   (``--sm-child``, one JSON command and reply per line; every child's
+   context made before any is timed; each builds its models one at a
+   time, as it is asked: with the children building at once, (b) at 100
+   read +23.20% on an H100, where it reads under 1% built in turn), every
+   number printed on its own line:
 
    (a) launch visibility: under ``libvgpu.so`` with no SM limit, the
        region's launch count over one case 1.1 step is at least the number
@@ -91,7 +104,7 @@ built:
        (where each launch's device time is still measured and charged);
        case 1.1 within 3% of alone (case 1.2's printed: host-bound, it
        spreads between processes);
-   (c) solo throttle: case 1.1 at a 50% limit for 12 s, each step
+   (c) solo throttle: case 1.1 at a 50% limit for 6 s, each step
        synchronised, runs at 0.40-0.60x its unthrottled img/s, and the
        device time the region was charged (the slot's ``launch_ns``) is
        0.8-1.1x the unthrottled CUDA-event step time over those steps;
@@ -99,7 +112,7 @@ built:
        before, by a new one, and the argument words left out of their
        function's key (they vary without changing its time) are printed,
        and the new keys' charges stay under 5% of the run's launches;
-   (d) two case 1.1 tenants at 70% and 30% at once for 12 s: img/s ratio
+   (d) two case 1.1 tenants at 70% and 30% at once for 6 s: img/s ratio
        in (1.7, 3.2), each below 0.9x and 0.55x of the solo rate; then,
        printed as their reference, two pods with no limit at once;
    (e) case 1.1's step captured with ``torch.cuda.CUDAGraph`` at a 50%
@@ -120,7 +133,9 @@ built:
 9. phase (k), the other models: every case of the reference's matrix
    (ResNet-V2-50 and -152, VGG-16, DeepLab-v3, the stacked LSTM;
    inference and training) alone at its published batch and shape, bf16,
-   seeded weights, in one child under ``libvgpu.so`` with no limit: step
+   seeded weights (one warm-up step for the cases past 1.x), in one child
+   under ``libvgpu.so`` with no limit, whose context is made with phase
+   8's children and which idles while they run: step
    ms, img/s (sequences/s for the LSTM), peak ``memory_reserved()``, the
    region's launches a step, finite logits and losses; then each of cases
    3.1-5.2 in a quota child with the default allocator, its quota the
@@ -136,15 +151,22 @@ built:
    (``FakeKubeClient``) and temp dirs for kubelet's socket dir and the shim
    host dir; it registers with a fake kubelet, ListAndWatch gives
    10 x cards healthy replicas and the register annotation decodes to the
-   NVML inventory. The script plays the scheduler (the assignment
-   annotations of one card, ``gpumem`` 12288 MiB, ``gpucores`` 50, written
-   with the port's codec at bind-phase ``allocating``) and kubelet
-   (Allocate over the plugin's socket, its latency printed); bind-phase
-   turns ``success``. The plugin process imported no torch and took no
-   device memory or context. A case 1.1 ``--sm-child`` started with only
-   the response's env and mounts (vtpu_torch/plugin/runtime.py) sees a
+   NVML inventory. The port's scheduler (``vtpu_torch.scheduler.__main__
+   .main``) then runs in a thread of the plugin's process on the same
+   apiserver, its HTTP app on a free local port; the script plays only the
+   API server and kube-scheduler: it POSTs an AdmissionReview to
+   ``/webhook`` (the patch sets ``schedulerName`` vtpu-scheduler and
+   injects the priority), creates the mutated pod, POSTs ``/filter`` with
+   the node list (the winner is the card's node) and ``/bind``; the
+   assignment names the card's UUID at ``gpumem`` 12288 MiB and
+   ``gpucores`` 50 at bind-phase ``allocating``, each call's latency
+   printed. Then kubelet: Allocate over the plugin's socket (its latency
+   printed); bind-phase turns ``success``. The plugin process imported no
+   torch and took no device memory or context. A case 1.1
+   ``--sm-child`` started with only the response's env and mounts
+   (vtpu_torch/plugin/runtime.py) sees a
    12 GiB ``mem_get_info`` total, is refused one allocation past it and
-   runs on, runs at 0.40-0.60x phase (c)'s unthrottled img/s for 12 s, and
+   runs on, runs at 0.40-0.60x phase (c)'s unthrottled img/s for 6 s, and
    its region at the mount's host path carries the limit, the SM limit 50
    and its slot, and is clean after it exits;
 11. phase (j), the node monitor (vtpu_torch/monitor) over phase (i)'s
@@ -173,8 +195,22 @@ built:
    its limit and usage; the sweep latency is printed; the monitor took no
    context and no device memory; every region is clean after its pod
    exits; the phase takes under 120 s, pod U2's time apart;
+11b. phase (n), the scheduler at cluster scale: ``python -m
+   vtpu_torch.scheduler.loadtest`` in a child that imports no torch runs
+   the port's scheduler daemon on an in-memory apiserver of 1,024 nodes x
+   8 of this card (its NVML type string and MiB, 10 replicas a card, NUMA
+   0,0,0,0,1,1,1,1, no mesh coordinate) and sends 8,192 seeded pods
+   (1-card at 3,072 / 12,288 / 20,480 MiB and 25 / 50 / 100 cores, 2- and
+   4-card with and without ``numa-bind``, whole-node 8-card) through
+   ``/webhook``, ``/filter`` and ``/bind``. Gates, from the pods'
+   annotations: no card past its replicas, MiB or 100 cores; every
+   numa-bind pod inside one NUMA node; no pod refused that a plain
+   first-fit over the same recomputed usage places at that point of the
+   stream; the card's used memory and compute processes unmoved while it
+   runs. Prints /filter p50 and p99 (and /webhook's, /bind's), binds a
+   second, placed and refused counts and the phase's time;
 12. phase (l), the north star: ``python -m vtpu_torch.northstar`` with 4
-   pods of case 1.1 at 3 GiB each for 15 s (each a child under
+   pods of case 1.1 at 3 GiB each for 6 s (each a child under
    ``libvgpu.so`` with its own region), then ``--tight`` (calibrated
    quotas that bind, a training configuration, quotas summing past the
    card) at 4 s. Every pod exits clean, the last pod's allocation past its
@@ -187,12 +223,12 @@ built:
    1.1 at batch 50) within 0.9-1.1x phase (b)'s img/s alone, its MFU in
    (0, 1]; ``--profile --cases 1.1`` (every libvgpu.so call timed): its
    ``execute`` calls within 1% of the child's region launches, ``buf_alloc``
-   calls, the top cost centers printed; ``--parity --cases 1.1 --reps 3``
+   calls, the top cost centers printed; ``--parity --cases 1.1 --reps 1``
    against that profile as its baseline (``VTPU_PARITY_P50X=0.5``: a
    self-check that the profile half runs): the shim/native best-rep ratio
    at least 0.95; ``--interleave --quick --cases 1.1,3.1``: both halves of
    both cases, nothing written; then case 1.1 under libvgpu.so with the
-   profile on and off (``VTPU_PROFILE=0``), reps in turns, the cost
+   profile on and off (``VTPU_PROFILE=0``), one rep each, the cost
    printed, not gated; the phase prints its time;
 14. prints the port's native components (the JAX package has no TPU kernel,
    so ``kernels`` is empty) and, last, ``{"ok": true, "device": ...}``.
@@ -213,6 +249,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent import futures
 
@@ -264,16 +301,26 @@ TRAIN_HEADROOM = 0.25
 TRIM_LOG = "memory pool at the quota, trimmed"
 WARMUP = 3
 # timed steps: 10 for cases 1.x; phase (k) times the other cases' steps
-# fewer (the LSTM's training step runs ~96,000 launches, 1.6-2.0 s), to
-# make room for phase (l) in the script's time
+# fewer (the LSTM's training step runs ~96,000 launches, 1.6-2.0 s), after
+# one warm-up step (its kernels loaded, its allocator's cache grown), to
+# keep the script inside its time
 STEPS = {c.case: 10 if c.case.startswith("1.") else
          3 if c.mode == "inference" else 2 for c in BENCH_CASES}
+WARMUPS = {c.case: WARMUP if c.case.startswith("1.") else 1
+           for c in BENCH_CASES}
 CHILD_TIMEOUT_S = 300
 # what libvgpu.so logs, whatever its log level, when NVML cannot measure a
 # quota'd process's footprint at all, and when it can measure only its
 # context's size at creation
 NVML_MISSING_LOG = "NVML unavailable"
 CONTEXT_ONLY_LOG = "cannot tell this process apart"
+# a child started ahead of its turn ("held") reads one line from stdin
+# before it does anything else: its interpreter and imports load while the
+# child before it runs, and it reaches the card only once the parent has
+# read the card and sent "go"
+HOLD_ENV = "VGPU_SMOKE_HOLD"
+# children started ahead of their turn, stopped at exit where still running
+_HELD: list = []
 
 
 class SmokeFailure(Exception):
@@ -323,17 +370,18 @@ def build_model(case, dtype: torch.dtype, seed: int = 0):
     return model
 
 
-def time_steps(run, steps: int):
-    """Warm up, then ``steps`` calls of ``run(i)``: (outputs of the timed
-    calls, device ms per step from CUDA events, host ms per step)."""
-    for i in range(WARMUP):
+def time_steps(run, steps: int, warmup: int = WARMUP):
+    """``warmup`` calls, then ``steps`` calls of ``run(i)``: (outputs of
+    the timed calls, device ms per step from CUDA events, host ms per
+    step)."""
+    for i in range(warmup):
         run(i)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     start.record()
-    outs = [run(WARMUP + i) for i in range(steps)]
+    outs = [run(warmup + i) for i in range(steps)]
     end.record()
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3 / steps
@@ -341,20 +389,21 @@ def time_steps(run, steps: int):
 
 
 def run_case(case, model, steps: int):
-    """The case's steps on its model: (last output, ms, host ms, img/s).
-    Inference reuses one batch; training takes a distinct seeded batch
-    each step and checks that every loss is finite."""
+    """The case's steps on its model, after its WARMUPS: (last output, ms,
+    host ms, img/s). Inference reuses one batch; training takes a distinct
+    seeded batch each step and checks that every loss is finite."""
+    warmup = WARMUPS[case.case]
     if case.mode == "inference":
         x, _ = make_batch(case, 0)
         step = make_infer_step(model)
-        outs, ms, host_ms = time_steps(lambda i: step(x), steps)
+        outs, ms, host_ms = time_steps(lambda i: step(x), steps, warmup)
         check_logits(case, outs[-1])
     else:
-        batches = [make_batch(case, 100 + i) for i in range(WARMUP + steps)]
+        batches = [make_batch(case, 100 + i) for i in range(warmup + steps)]
         step, _ = make_train_step(model)
         dropout = torch.Generator(device="cuda").manual_seed(7)
         outs, ms, host_ms = time_steps(
-            lambda i: step(*batches[i], dropout), steps)
+            lambda i: step(*batches[i], dropout), steps, warmup)
         losses = torch.stack(outs)
         check(bool(torch.isfinite(losses).all()),
               f"case {case.case}: non-finite loss in {losses.tolist()}")
@@ -435,7 +484,9 @@ def flat(update: dict, names=None) -> torch.Tensor:
                       for n in sorted(names or update)])
 
 
-def train_phase(name: str) -> dict:
+def train_phase(name: str, timed) -> dict:
+    """Case 1.2's timed steps, then ``timed()`` (work that may run beside
+    what follows, which times nothing), then one step three ways."""
     case = CASES["1.2"]
     model = build_model(case, torch.bfloat16)
     torch.cuda.reset_peak_memory_stats()
@@ -444,6 +495,7 @@ def train_phase(name: str) -> dict:
     peak_reserved = torch.cuda.max_memory_reserved()
     del model
     torch.cuda.empty_cache()
+    timed()
 
     # one step from the same weights and batch: bf16 and f32 (TF32 off) on
     # the card, and f32 on the host CPU as an independent implementation
@@ -510,13 +562,12 @@ def train_phase(name: str) -> dict:
 
 def sharded_phase(name: str) -> dict:
     """The sharded step on a 1x1 mesh (NCCL, one rank) against the plain
-    step from the same weights and batch, in bf16 and in f32 (TF32 off),
-    then dryrun_multichip(1). The f32 pair is held to the f32 tolerance
-    of the loss and to 5e-2 on the whole update; the bf16 pair's loss to
-    5e-2, its update printed (bf16 rounding, PERF.md)."""
+    step from the same weights and batch, in bf16 and in f32 (TF32 off).
+    The f32 pair is held to the f32 tolerance of the loss and to 5e-2 on
+    the whole update; the bf16 pair's loss to 5e-2, its update printed
+    (bf16 rounding, PERF.md). dryrun_multichip(1) runs beside it
+    (:func:`dryrun`)."""
     import torch.distributed as dist
-
-    import vtpu_torch
 
     case = CASES["1.2"]
     x, y = make_batch(case, 0)
@@ -558,11 +609,6 @@ def sharded_phase(name: str) -> dict:
               f"{result[f'{kind}_loss_rel_vs_plain']:.3e}), update rel L2 "
               f"{result[f'{kind}_update_rel_l2_vs_plain']:.3e}; on {name}",
               flush=True)
-    t0 = time.perf_counter()
-    vtpu_torch.dryrun_multichip(1)
-    result["dryrun_multichip_1_s"] = time.perf_counter() - t0
-    print(f"dryrun_multichip(1) passed in "
-          f"{result['dryrun_multichip_1_s']:.1f} s; on {name}", flush=True)
     check(result["f32_loss_rel_vs_plain"] <= F32_REL,
           f"sharded vs plain f32 loss rel {result['f32_loss_rel_vs_plain']}")
     check(result["f32_update_rel_l2_vs_plain"] <= BF16_REL,
@@ -571,6 +617,16 @@ def sharded_phase(name: str) -> dict:
     check(result["bf16_loss_rel_vs_plain"] <= BF16_REL,
           f"sharded vs plain bf16 loss rel {result['bf16_loss_rel_vs_plain']}")
     return result
+
+
+def dryrun() -> float:
+    """``vtpu_torch.dryrun_multichip(1)`` (one spawned rank over NCCL):
+    its seconds"""
+    import vtpu_torch
+
+    t0 = time.perf_counter()
+    vtpu_torch.dryrun_multichip(1)
+    return time.perf_counter() - t0
 
 
 def quota_child(case_name: str, quota: int) -> None:
@@ -699,18 +755,62 @@ def check_clean(cache: str) -> None:
               "region not clean after the child exited")
 
 
+def held_env(env: dict) -> dict:
+    """``env`` for a child started ahead of its turn (HOLD_ENV)"""
+    return dict(env, **{HOLD_ENV: "1"})
+
+
+def stop_held() -> None:
+    for child in _HELD:
+        if child.proc.poll() is None:
+            child.proc.kill()
+            child.proc.wait(timeout=60)
+        shutil.rmtree(child.tmp, ignore_errors=True)
+
+
+def pipelined(steps: list, first) -> list:
+    """Runs ``steps``, (start, run) pairs, in order: ``run(child)`` gets
+    what ``start()`` returned, its children started ahead. Step k+1's
+    ``start`` is called as step k starts, so its interpreters load while
+    step k runs; ``first`` is step 0's, started earlier still (step 0's
+    ``start`` is not called)."""
+    results, child = [], first
+    for k, (_, run) in enumerate(steps):
+        upcoming = steps[k + 1][0]() if k + 1 < len(steps) else None
+        results.append(run(child))
+        child = upcoming
+    return results
+
+
+class QuotaChild:
+    """A --quota-child process under libvgpu.so with its own region file
+    (LIBCUDA_LOG_LEVEL=3), started ahead of its turn (:meth:`go` gives it
+    the card)."""
+
+    def __init__(self, case_name: str, quota: int, alloc_conf: str):
+        self.tmp, self.cache, env = child_env(alloc_conf, quota)
+        env["LIBCUDA_LOG_LEVEL"] = "3"
+        self.errf = open(os.path.join(self.tmp, "child.err"), "w+")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--quota-child",
+             case_name, str(quota)],
+            env=held_env(env), stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, stderr=self.errf, text=True)
+        _HELD.append(self)
+
+    def go(self) -> None:
+        self.proc.stdin.write("go\n")
+        self.proc.stdin.flush()
+
+
 def quota_phase(name: str, case_name: str, quota: int,
-                alloc_conf: str) -> dict:
+                alloc_conf: str, child: QuotaChild) -> dict:
+    """``case_name`` under ``quota`` and ``alloc_conf`` in ``child``, a
+    QuotaChild of the same arguments; see the module docstring."""
     label = alloc_conf or "default allocator"
-    tmp, cache, env = child_env(alloc_conf, quota)
-    env["LIBCUDA_LOG_LEVEL"] = "3"
     free0, _ = torch.cuda.mem_get_info()
-    errf = open(os.path.join(tmp, "child.err"), "w+")
-    proc = subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--quota-child",
-         case_name, str(quota)],
-        env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=errf,
-        text=True)
+    child.go()
+    tmp, cache, errf, proc = child.tmp, child.cache, child.errf, child.proc
     try:
         ready, _, _ = select.select([proc.stdout], [], [], CHILD_TIMEOUT_S)
         line = proc.stdout.readline() if ready else ""
@@ -801,71 +901,72 @@ def compute_apps_memory() -> list:
     return apps
 
 
-def fill_phase(name: str) -> list:
-    """F1: at each of FILL_QUOTAS a child allocates 64 MiB at a time until
-    libvgpu.so refuses; the card's used memory grew by what the process
-    holds, context and all, which must stay within 2% of the quota. Where
-    NVML lists the child under a pid of its own, its used_memory is held
-    to the same bound."""
-    results = []
-    for quota in FILL_QUOTAS:
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        free0, _ = torch.cuda.mem_get_info()
-        child = SmChild(f"F1 fill {quota >> 30} GiB", quota=quota)
-        try:
-            r = child.ask("fill")
-            free1, _ = torch.cuda.mem_get_info()
-            apps = compute_apps_memory()
-            with child.view() as view:
-                region_used = view.used(0)
-            child.ask("release")
-            child.close()
-        finally:
-            if child.proc.poll() is None:
-                child.proc.kill()
-                child.proc.wait(timeout=60)
-        fp = r["footprint"]
-        held = free0 - free1  # the child's device memory, by the card
-        nvml_pid = fp["nvml_pid"] if fp["mode"] == "nvml_pid" else r["pid"]
-        own = [mib for pid, mib in apps if pid == nvml_pid]
-        nvml_used = own[0] * MiB if len(own) == 1 else None
-        print(f"F1 fill at a {quota} B quota: {r['filled']} B in "
-              f"{FILL_STEP >> 20} MiB allocations until refused; region "
-              f"charge {region_used} B, of it the footprint {fp['bytes']} B "
-              f"({fp['mode']}; the card grew by {fp['growth']} B across the "
-              f"context's creation, the node's context size on record "
-              f"{fp['node_context']} B); mem_get_info free {r['free']} B of "
-              f"{r['total']} B; the card's used memory grew by {held} B, "
-              f"{held / quota:.4f}x the quota; NVML's compute processes "
-              f"(pid, MiB) {apps}: "
-              + (f"the child's used_memory {nvml_used} B, "
-                 f"{nvml_used / quota:.4f}x the quota"
-                 if nvml_used is not None else
-                 f"no entry of the child's own (NVML pid {nvml_pid})")
-              + (f"; the footprint is the context's size at creation, not "
-                 f"re-read" if child.context_only else "")
-              + f"; on {name}", flush=True)
-        check(r["total"] == quota, f"F1 fill: mem_get_info total "
-              f"{r['total']}")
-        check(fp["mode"] in ("nvml_pid", "context") and fp["bytes"] > 0,
-              f"F1 fill: no footprint charged: {fp}")
-        check(region_used == r["used"] <= quota
-              and r["filled"] + fp["bytes"] <= quota,
-              f"F1 fill: charge {region_used} B past the quota")
-        check(held <= (1 + FILL_LEAKAGE) * quota, f"F1 fill: the process "
-              f"holds {held} B, {held / quota:.4f}x its quota")
-        if nvml_used is not None:
-            check(nvml_used <= (1 + FILL_LEAKAGE) * quota, f"F1 fill: NVML "
-                  f"used_memory {nvml_used} B, {nvml_used / quota:.4f}x")
-        results.append({"phase": f"F1 fill {quota >> 30} GiB",
-                        "quota_bytes": quota, "filled_bytes": r["filled"],
-                        "region_used": region_used, "footprint": fp,
-                        "card_delta_bytes": held,
-                        "leakage": held / quota - 1,
-                        "nvml_used_bytes": nvml_used,
-                        "context_only": child.context_only})
-    return results
+def fill_child(quota: int) -> SmChild:
+    """F1's child at ``quota``, started ahead"""
+    return SmChild(f"F1 fill {quota >> 30} GiB", quota=quota, ahead=True)
+
+
+def fill_phase(name: str, quota: int, child: SmChild) -> dict:
+    """F1: at ``quota`` ``child`` (:func:`fill_child`) allocates 64 MiB at a
+    time until libvgpu.so refuses; the card's used memory grew by what the
+    process holds, context and all, which must stay within 2% of the
+    quota. Where NVML lists the child under a pid of its own, its
+    used_memory is held to the same bound."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free0, _ = torch.cuda.mem_get_info()
+    child.go()
+    try:
+        r = child.ask("fill")
+        free1, _ = torch.cuda.mem_get_info()
+        apps = compute_apps_memory()
+        with child.view() as view:
+            region_used = view.used(0)
+        child.ask("release")
+        child.close()
+    finally:
+        if child.proc.poll() is None:
+            child.proc.kill()
+            child.proc.wait(timeout=60)
+    fp = r["footprint"]
+    held = free0 - free1  # the child's device memory, by the card
+    nvml_pid = fp["nvml_pid"] if fp["mode"] == "nvml_pid" else r["pid"]
+    own = [mib for pid, mib in apps if pid == nvml_pid]
+    nvml_used = own[0] * MiB if len(own) == 1 else None
+    print(f"F1 fill at a {quota} B quota: {r['filled']} B in "
+          f"{FILL_STEP >> 20} MiB allocations until refused; region "
+          f"charge {region_used} B, of it the footprint {fp['bytes']} B "
+          f"({fp['mode']}; the card grew by {fp['growth']} B across the "
+          f"context's creation, the node's context size on record "
+          f"{fp['node_context']} B); mem_get_info free {r['free']} B of "
+          f"{r['total']} B; the card's used memory grew by {held} B, "
+          f"{held / quota:.4f}x the quota; NVML's compute processes "
+          f"(pid, MiB) {apps}: "
+          + (f"the child's used_memory {nvml_used} B, "
+             f"{nvml_used / quota:.4f}x the quota"
+             if nvml_used is not None else
+             f"no entry of the child's own (NVML pid {nvml_pid})")
+          + (f"; the footprint is the context's size at creation, not "
+             f"re-read" if child.context_only else "")
+          + f"; on {name}", flush=True)
+    check(r["total"] == quota, f"F1 fill: mem_get_info total "
+          f"{r['total']}")
+    check(fp["mode"] in ("nvml_pid", "context") and fp["bytes"] > 0,
+          f"F1 fill: no footprint charged: {fp}")
+    check(region_used == r["used"] <= quota
+          and r["filled"] + fp["bytes"] <= quota,
+          f"F1 fill: charge {region_used} B past the quota")
+    check(held <= (1 + FILL_LEAKAGE) * quota, f"F1 fill: the process "
+          f"holds {held} B, {held / quota:.4f}x its quota")
+    if nvml_used is not None:
+        check(nvml_used <= (1 + FILL_LEAKAGE) * quota, f"F1 fill: NVML "
+              f"used_memory {nvml_used} B, {nvml_used / quota:.4f}x")
+    return {"phase": f"F1 fill {quota >> 30} GiB",
+            "quota_bytes": quota, "filled_bytes": r["filled"],
+            "region_used": region_used, "footprint": fp,
+            "card_delta_bytes": held, "leakage": held / quota - 1,
+            "nvml_used_bytes": nvml_used,
+            "context_only": child.context_only}
 
 
 # ------------------------ F6: memory a context takes after its creation.
@@ -894,16 +995,24 @@ def check_f6(who: str, quota: int, grew: int, region_used: int) -> None:
           f"the {quota} B quota over-charged")
 
 
-def run_fill_phase(name: str, case_name: str, quota: int) -> dict:
-    """F6: a child at ``quota`` runs ``case_name`` for F6_STEPS steps (its
-    kernels loaded, its local memory grown), then fills its quota 64 MiB at
-    a time until refused. The card's used memory grows by at most 1.02x the
-    quota; what the card shows beyond the region's charge is at most 2% of
-    the quota, the charge beyond the card's growth at most 5%."""
+def run_fill_child(case_name: str, quota: int) -> SmChild:
+    """F6's child, started ahead"""
+    return SmChild(f"F6 case {case_name} run then fill", quota=quota,
+                   ahead=True)
+
+
+def run_fill_phase(name: str, case_name: str, quota: int,
+                   child: SmChild) -> dict:
+    """F6: at ``quota`` ``child`` (:func:`run_fill_child`) runs
+    ``case_name`` for F6_STEPS steps (its kernels loaded, its local memory
+    grown), then fills its quota 64 MiB at a time until refused. The
+    card's used memory grows by at most 1.02x the quota; what the card
+    shows beyond the region's charge is at most 2% of the quota, the
+    charge beyond the card's growth at most 5%."""
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     free0, _ = torch.cuda.mem_get_info()
-    child = SmChild(f"F6 case {case_name} run then fill", quota=quota)
+    child.go()
     try:
         r = child.ask("run_fill", case=case_name, steps=F6_STEPS)
         free1, _ = torch.cuda.mem_get_info()
@@ -953,7 +1062,16 @@ NEIGHBOUR_AFTER_MS = 20
 NEIGHBOUR_TRIES = 3
 
 
-def neighbour_phase(name: str) -> dict:
+def neighbour_children() -> tuple:
+    """F1 beside a neighbour: pod B outside the interposer and the first
+    try's pod A, both started ahead"""
+    return (SmChild("F1 neighbour", interposed=False, quota=None,
+                    ahead=True),
+            SmChild("F1 pod beside the neighbour", quota=FILL_QUOTAS[0],
+                    ahead=True))
+
+
+def neighbour_phase(name: str, ahead: tuple) -> dict:
     """F1 beside a neighbour: pod B, a process outside the interposer,
     allocates NEIGHBOUR_BYTES while pod A (a 3 GiB quota) makes its
     context. Where NVML cannot tell processes
@@ -963,19 +1081,22 @@ def neighbour_phase(name: str) -> dict:
     its quota less that. Where NVML lists A under a pid of its own, A's
     charge is its own usedGpuMemory and must not hold B's bytes. Tried up
     to NEIGHBOUR_TRIES times until B's allocation lands inside A's
-    measurement."""
+    measurement. ``ahead``: B and the first try's A, from
+    :func:`neighbour_children`."""
     quota = FILL_QUOTAS[0]
     # outside the interposer: an interposed neighbour holds its allocations
     # while another process's context or first launch is measured (F6)
-    b = SmChild("F1 neighbour", interposed=False, quota=None)
+    b, a = ahead
     try:
+        b.go()
         for attempt in range(1, NEIGHBOUR_TRIES + 1):
             b.send("alloc_when_locked", bytes=NEIGHBOUR_BYTES,
                    after_ms=NEIGHBOUR_AFTER_MS)
-            a = SmChild("F1 pod beside the neighbour", quota=quota,
-                        wait=False)
+            if attempt > 1:
+                a = SmChild("F1 pod beside the neighbour", quota=quota,
+                            ahead=True)
             try:
-                first = a.ready()
+                first = a.go()
                 landed = b.read()["landed"]
                 fill = a.ask("fill")
                 a.ask("release")
@@ -1030,17 +1151,18 @@ ZOO_CASES = ("3.1", "3.2", "4.1", "4.2", "5.1", "5.2")
 F6_ZOO_CASE = "3.1"  # run then filled at its quota (VGG-16's 411 MB fc1)
 
 
-def zoo_phase(name: str) -> list:
+def zoo_phase(name: str, alone: SmChild) -> list:
     """Phase (k): every case of BENCH_CASES alone, at its published batch
-    and shape, bf16, seeded weights, in one --sm-child under libvgpu.so
-    with no limit (for its launch counts): step ms, img/s (sequences/s for
-    the LSTM), peak memory_reserved(), the region's launches a step,
-    finite logits or losses. Then each of ZOO_CASES under its own quota,
-    its peak alone plus the footprint charge plus 25%, whole GiB, held to
-    the quota phases' checks."""
+    and shape, bf16, seeded weights, in ``alone``, one --sm-child under
+    libvgpu.so with no limit (for its launch counts; started and ready
+    beside the compute plane's children, idle while they ran): step ms,
+    img/s (sequences/s for the LSTM), peak memory_reserved(), the region's
+    launches a step, finite logits or losses. Then each of ZOO_CASES under
+    its own quota, its peak alone plus the footprint charge plus 25%, whole
+    GiB, held to the quota phases' checks; each quota child is started
+    ahead, the first as soon as its quota is known."""
     start = time.perf_counter()
-    results = []
-    alone = SmChild("(k) every case alone", quota=None)
+    results, quotas, first = [], {}, None
     try:
         for case in BENCH_CASES:
             r = alone.ask("zoo", case=case.case)
@@ -1055,24 +1177,39 @@ def zoo_phase(name: str) -> list:
                   f"model built in {r['build_s']:.1f} s; on {name}",
                   flush=True)
             check(r["finite"], f"(k) case {case.case}: non-finite output")
+            if case.case in ZOO_CASES:
+                peak, fp = r["peak_reserved"], r["footprint"]["bytes"]
+                quotas[case.case] = math.ceil(
+                    (peak + fp) * (1 + TRAIN_HEADROOM) / GiB) * GiB
+                if case.case == ZOO_CASES[0]:
+                    first = QuotaChild(case.case, quotas[case.case], "")
         alone.close()
     finally:
         if alone.proc.poll() is None:
             alone.proc.kill()
             alone.proc.wait(timeout=60)
     by_case = {r["phase"].split()[2]: r for r in results}
-    for case_name in ZOO_CASES:
+
+    def quota_step(case_name, child):
         peak = by_case[case_name]["peak_reserved"]
         fp = by_case[case_name]["footprint"]["bytes"]
-        quota = math.ceil((peak + fp) * (1 + TRAIN_HEADROOM) / GiB) * GiB
         print(f"(k) case {case_name} quota: max_memory_reserved alone {peak} "
               f"B + footprint {fp} B, + {TRAIN_HEADROOM:.0%}, rounded up to "
-              f"whole GiB: {quota} B", flush=True)
-        results.append(dict(quota_phase(name, case_name, quota, ""),
-                            max_memory_reserved_alone=peak,
-                            footprint_alone=fp))
-        if case_name == F6_ZOO_CASE:
-            results.append(run_fill_phase(name, case_name, quota))
+              f"whole GiB: {quotas[case_name]} B", flush=True)
+        return dict(quota_phase(name, case_name, quotas[case_name], "",
+                                child),
+                    max_memory_reserved_alone=peak, footprint_alone=fp)
+
+    steps = []
+    for c in ZOO_CASES:
+        steps.append((lambda c=c: QuotaChild(c, quotas[c], ""),
+                      lambda child, c=c: quota_step(c, child)))
+        if c == F6_ZOO_CASE:
+            steps.append((
+                lambda c=c: run_fill_child(c, quotas[c]),
+                lambda child, c=c: run_fill_phase(name, c, quotas[c],
+                                                  child)))
+    results += pipelined(steps, first)
     took = time.perf_counter() - start
     print(f"(k) the phase took {took:.1f} s; on {name}", flush=True)
     results.append({"phase": "(k) time", "phase_s": took})
@@ -1085,8 +1222,8 @@ def zoo_phase(name: str) -> list:
 # libvgpu.so with a 12 GiB quota and the SM limit, priority and host limit
 # of their phase.
 
-SM_RUN_S = 12.0     # (c), (d): throttled runs, after warm-up
-REF_RUN_S = 4.0     # the unthrottled run they are held to
+SM_RUN_S = 6.0      # (c), (d), (i): throttled runs, after warm-up
+REF_RUN_S = 3.0     # the unthrottled run they are held to
 GRAPH_RUN_S = 4.0   # (e)
 SWITCH_RUN_S = 3.0  # (f)
 BLOCK_S = 1.0       # (f): how long the block is held
@@ -1106,13 +1243,15 @@ class SmChild:
 
     def __init__(self, label: str, interposed: bool = True, sm_limit=None,
                  priority=None, host_limit=None, given=None,
-                 quota=INFER_QUOTA, wait: bool = True, extra_env=None):
+                 quota=INFER_QUOTA, wait: bool = True, extra_env=None,
+                 ahead: bool = False):
         """``given`` = (env, region file) replaces the env this class
         builds (phases (i) and (j): the env of an Allocate response, given
         the run's lock directory, which Allocate mounts from the node);
         ``quota`` None runs with no memory limit; ``extra_env`` is added to
         the env. Unless ``wait`` is False (then call :meth:`ready`),
-        returns once the child's context is made."""
+        returns once the child's context is made; with ``ahead``, the child
+        is started ahead of its turn and :meth:`go` gives it the card."""
         self.label = label
         self.context_only = False
         if given is not None:
@@ -1133,10 +1272,19 @@ class SmChild:
         self.errf = open(os.path.join(self.tmp, "child.err"), "w+")
         self.proc = subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--sm-child"],
-            env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
-            stderr=self.errf, text=True)
-        if wait:
+            env=held_env(env) if ahead else env, stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, stderr=self.errf, text=True)
+        if ahead:
+            _HELD.append(self)
+        elif wait:
             self.ready()
+
+    def go(self, wait: bool = True):
+        """a child started ahead: its turn; unless ``wait`` is False
+        (then call :meth:`ready`), returns once its context is made"""
+        self.proc.stdin.write("go\n")
+        self.proc.stdin.flush()
+        return self.ready() if wait else None
 
     def ready(self) -> dict:
         """the child's first line: its context is made (the footprint
@@ -1322,7 +1470,8 @@ def sm_child() -> None:
         torch.cuda.empty_cache()
         return {"ms": ms, "host_ms": host_ms, "rate": rate,
                 "peak_reserved": peak, "finite": finite,
-                "launches_per_step": launches / (WARMUP + STEPS[case.case]),
+                "launches_per_step": launches / (WARMUPS[case.case]
+                                                 + STEPS[case.case]),
                 "build_s": built, "footprint": enf.footprint()}
 
     def op_graph(cmd):
@@ -1496,27 +1645,43 @@ def sm_child() -> None:
         print(json.dumps(reply), flush=True)
 
 
-def compute_phases(name: str) -> list:
-    """Phases (a)-(h) of the compute plane; see the module docstring."""
-    children = {}
+# phase (k)'s child alone (:func:`zoo_phase`), started with the compute
+# plane's children
+ZOO_ALONE = "(k) every case alone"
+
+
+def compute_children() -> dict:
+    """The compute plane's --sm-children and phase (k)'s child alone, by
+    label, all started ahead"""
+    kinds = {"alone": {"interposed": False}, "no SM limit": {},
+             "SM limit 100": {"sm_limit": 100},
+             "SM limit 50": {"sm_limit": 50},
+             "SM limit 70": {"sm_limit": 70},
+             "SM limit 30": {"sm_limit": 30, "priority": 1},
+             "host limit": {"host_limit": HOST_LIMIT},
+             ZOO_ALONE: {"quota": None}}
+    return {label: SmChild(label, ahead=True, **kw)
+            for label, kw in kinds.items()}
+
+
+def compute_phases(name: str, children: dict) -> tuple:
+    """Phases (a)-(h) of the compute plane, in ``children`` (from
+    :func:`compute_children`); see the module docstring. Returns (the
+    phases, phase (k)'s child alone, ready and idle while they ran)."""
+    children = dict(children)
     phases = []
 
-    def start(label, **kw):
-        children[label] = SmChild(label, wait=False, **kw)
-        return children[label]
-
     try:
-        alone = start("alone", interposed=False)
-        free = start("no SM limit")
-        full = start("SM limit 100", sm_limit=100)
-        half = start("SM limit 50", sm_limit=50)
-        hi = start("SM limit 70", sm_limit=70)
-        lo = start("SM limit 30", sm_limit=30, priority=1)
-        host = start("host limit", host_limit=HOST_LIMIT)
         # every child started, its context made, before any is timed: a
         # process starting beside a timed run would skew its time
         for child in children.values():
+            child.go(wait=False)
+        for child in children.values():
             child.ready()
+        zoo = children.pop(ZOO_ALONE)
+        alone, free, full, half, hi, lo, host = (children[label] for label in (
+            "alone", "no SM limit", "SM limit 100", "SM limit 50",
+            "SM limit 70", "SM limit 30", "host limit"))
 
         # (b) unthrottled cost, then (a) launch visibility
         times = {}
@@ -1710,19 +1875,23 @@ def compute_phases(name: str) -> list:
                 child.proc.wait(timeout=60)
             child.errf.close()
             shutil.rmtree(child.tmp, ignore_errors=True)
-    return phases
+    return phases, zoo
 
 
 # ------------------------------------------------------ (i) the node agent.
 # The device plugin runs in its own process, started through its entry
 # point with an in-memory apiserver (FakeKubeClient) that this script reads
 # and writes through the child's stdin/stdout (one JSON command and reply
-# per line). The child imports vtpu_torch's plugin only: no torch.
+# per line). The port's scheduler runs in a thread of the same process,
+# through its own entry point, on the same apiserver: the script reaches
+# its extender and webhook over HTTP. The child imports vtpu_torch's
+# plugin and scheduler only: no torch.
 
 PLUGIN_CHILD = r"""
 import json, os, signal, sys, threading, time
 from vtpu_torch.plugin.__main__ import main
 from vtpu_torch.plugin.nvml import NvmlLib
+from vtpu_torch.scheduler.__main__ import main as scheduler_main
 from vtpu_torch.util.client import FakeKubeClient
 
 node, sock_dir, shim_dir, split = sys.argv[1:5]
@@ -1757,6 +1926,14 @@ def serve():
             reply = client.patch_node_annotations(node, cmd["annos"])
         elif op == "nvml":
             reply = cold
+        elif op == "scheduler":
+            # the port's scheduler daemon on the same apiserver, serving
+            # its extender and webhook on the given local port
+            threading.Thread(target=scheduler_main, args=([
+                "--http-bind", f"127.0.0.1:{cmd['port']}",
+                "--metrics-bind", f"127.0.0.1:{cmd['metrics_port']}"],),
+                kwargs={"client": client}, daemon=True).start()
+            reply = {"started": True}
         else:
             reply = {"modules": sorted(
                 m for m in sys.modules
@@ -1842,21 +2019,139 @@ class PluginChild:
         return out
 
 
+class Extender:
+    """The port's scheduler over HTTP, as kube-scheduler and the API
+    server reach it."""
+
+    def __init__(self, port: int):
+        import http.client
+
+        self.conn = http.client.HTTPConnection("127.0.0.1", port,
+                                               timeout=60)
+
+    def call(self, method: str, path: str, body=None):
+        t0 = time.perf_counter()
+        self.conn.request(method, path,
+                          body=None if body is None else json.dumps(body),
+                          headers={"Content-Type": "application/json"})
+        resp = self.conn.getresponse()
+        raw = resp.read()
+        ms = (time.perf_counter() - t0) * 1e3
+        try:
+            return resp.status, json.loads(raw), ms
+        except ValueError:
+            return resp.status, raw.decode(errors="replace"), ms
+
+
+def start_scheduler(plugin: "PluginChild") -> int:
+    """The port's scheduler, started through its entry point in the
+    plugin's process on the same apiserver; its HTTP port."""
+    port, metrics_port = free_port(), free_port()
+    plugin.ask("scheduler", port=port, metrics_port=metrics_port)
+    return port
+
+
+def extender_phase(name: str, plugin: "PluginChild", port: int,
+                   chip) -> dict:
+    """Phase (i)'s assignment: the port's scheduler (start_scheduler, on
+    ``port``) admits the pod through /webhook (schedulerName and the
+    injected priority in the patch), and places it through /filter and
+    /bind on the card's node, at gpumem 12288 MiB and gpucores 50."""
+    import base64
+    import urllib.error
+
+    from vtpu_torch.scheduler.loadtest import apply_patch
+    from vtpu_torch.util import codec
+
+    deadline = time.monotonic() + 60
+    while True:
+        try:
+            ext = Extender(port)
+            if ext.call("GET", "/healthz")[0] == 200:
+                break
+        except (urllib.error.URLError, ConnectionError, OSError):
+            pass
+        check(time.monotonic() < deadline,
+              f"(i) the scheduler is not serving:\n{plugin.err()}")
+        time.sleep(0.1)
+    # its first registration poll, one period (15 s) in, takes the
+    # plugin's report
+    while not plugin.ask("get_node")["metadata"]["annotations"].get(
+            api.HANDSHAKE_ANNO, "").startswith("Requesting"):
+        check(time.monotonic() < deadline,
+              "(i) the scheduler did not take the node's report")
+        time.sleep(0.1)
+    pod = {"metadata": {"name": "smoke-pod", "namespace": "default",
+                        "uid": "smoke-uid", "annotations": {}},
+           "spec": {"containers": [{
+               "name": "main", "resources": {"limits": {
+                   api.RESOURCE_GPU: 1, api.RESOURCE_MEM: NODE_QUOTA_MB,
+                   api.RESOURCE_CORES: NODE_SM_LIMIT,
+                   api.RESOURCE_PRIORITY: 1}}}]},
+           "status": {"phase": "Pending"}}
+    status, review, webhook_ms = ext.call("POST", "/webhook", {
+        "apiVersion": "admission.k8s.io/v1", "kind": "AdmissionReview",
+        "request": {"uid": "smoke-review", "operation": "CREATE",
+                    "object": pod}})
+    resp = review.get("response", {}) if status == 200 else {}
+    check(resp.get("allowed") is True and "patch" in resp,
+          f"(i) /webhook {status}: {review}")
+    patch = json.loads(base64.b64decode(resp["patch"]))
+    apply_patch(pod, patch)
+    env = pod["spec"]["containers"][0].get("env", [])
+    check(pod["spec"].get("schedulerName") == "vtpu-scheduler"
+          and {"name": api.ENV_TASK_PRIORITY, "value": "1"} in env
+          and pod["metadata"]["annotations"].get(
+              api.TASK_PRIORITY_ANNO) == "1",
+          f"(i) the webhook's patch {patch}")
+    plugin.ask("add_pod", pod=pod)
+    stored = plugin.ask("get_pod", name="smoke-pod")
+    status, body, filter_ms = ext.call("POST", "/filter", {
+        "Pod": stored, "NodeNames": [NODE_NAME]})
+    check(status == 200 and body.get("NodeNames") == [NODE_NAME],
+          f"(i) /filter {status}: {body}")
+    status, body, bind_ms = ext.call("POST", "/bind", {
+        "PodName": "smoke-pod", "PodNamespace": "default",
+        "PodUID": "smoke-uid", "Node": NODE_NAME})
+    check(status == 200 and body == {"Error": ""},
+          f"(i) /bind {status}: {body}")
+    annos = plugin.ask("get_pod", name="smoke-pod")["metadata"][
+        "annotations"]
+    (placed,) = codec.decode_pod_devices(annos[api.TO_ALLOCATE_ANNO])
+    got = [(d.uuid, d.usedmem, d.usedcores) for d in placed]
+    locked = api.NODE_LOCK_ANNO in plugin.ask("get_node")["metadata"][
+        "annotations"]
+    print(f"(i) the port's scheduler over HTTP: /webhook {webhook_ms:.3f} "
+          f"ms (schedulerName {pod['spec']['schedulerName']}, "
+          f"{api.ENV_TASK_PRIORITY}=1 and {api.TASK_PRIORITY_ANNO} 1 "
+          f"injected), /filter {filter_ms:.3f} ms (winner {NODE_NAME}), "
+          f"/bind {bind_ms:.3f} ms; assignment {got}, bind-phase "
+          f"{annos.get(api.BIND_PHASE_ANNO)}, node locked {locked}; on "
+          f"{name}", flush=True)
+    check(got == [(chip.uuid, NODE_QUOTA_MB, NODE_SM_LIMIT)]
+          and annos.get(api.ASSIGNED_NODE_ANNO) == NODE_NAME
+          and annos.get(api.BIND_PHASE_ANNO) == "allocating" and locked,
+          f"(i) after /bind: {annos}")
+    return {"webhook_ms": webhook_ms, "filter_ms": filter_ms,
+            "bind_ms": bind_ms}
+
+
 def node_agent_phase(name: str, solo_img_s: float,
                      step_ms: dict) -> list:
     """Phase (i): the device plugin enumerates the card through NVML,
     advertises its replicas to a fake kubelet, reports the inventory, and
-    answers Allocate for a pod the script assigns as the scheduler would;
-    a case 1.1 child started with that response's env alone runs under
-    libvgpu.so at the granted quota and SM limit. Then phase (j), the node
-    monitor, over the same plugin's pods."""
+    answers Allocate for a pod the port's scheduler admitted and placed
+    over HTTP (extender_phase); a case 1.1 child started with that
+    response's env alone runs under libvgpu.so at the granted quota and
+    SM limit. Then phase (j), the node monitor, over the same plugin's
+    pods."""
     import grpc
 
     from vtpu_torch.plugin import deviceplugin_pb2 as pb
     from vtpu_torch.plugin import dp_grpc, runtime
     from vtpu_torch.plugin.nvml import NvmlLib
     from vtpu_torch.plugin.rm import replica_id
-    from vtpu_torch.util import codec, nodelock, podutil, types
+    from vtpu_torch.util import codec
 
     # enumeration, in this process, against torch and nvidia-smi
     start = t0 = time.perf_counter()
@@ -1908,6 +2203,10 @@ def node_agent_phase(name: str, solo_img_s: float,
     workload = None
     try:
         plugin = PluginChild(tmp)
+        # the scheduler first takes the node's report one registration
+        # period (15 s) after it starts: it starts now, and that period
+        # runs while the plugin registers and advertises
+        sched_port = start_scheduler(plugin)
         kubelet = grpc.server(futures.ThreadPoolExecutor(max_workers=2))
         dp_grpc.add_registration_servicer(kubelet, FakeKubelet())
         kubelet.add_insecure_port(
@@ -1940,23 +2239,9 @@ def node_agent_phase(name: str, solo_img_s: float,
               [(c.uuid, SPLIT, c.hbm_mb, 100, c.type, True) for c in chips],
               f"register annotation {annos[api.NODE_REGISTER_ANNO]}")
 
-        # the assignment the scheduler's filter and bind would leave
-        grant = types.ContainerDevice(uuid=chips[0].uuid,
-                                      usedmem=NODE_QUOTA_MB,
-                                      usedcores=NODE_SM_LIMIT)
-        pod_annos = podutil.device_annotations(NODE_NAME, [[grant]])
-        pod_annos[api.BIND_PHASE_ANNO] = types.BindPhase.ALLOCATING.value
-        pod_annos[api.BIND_TIME_ANNO] = str(time.time_ns())
-        plugin.ask("add_pod", pod={
-            "metadata": {"name": "smoke-pod", "namespace": "default",
-                         "uid": "smoke-uid", "annotations": pod_annos},
-            "spec": {"nodeName": NODE_NAME, "containers": [{
-                "name": "main", "resources": {"limits": {
-                    api.RESOURCE_GPU: 1, api.RESOURCE_MEM: NODE_QUOTA_MB,
-                    api.RESOURCE_CORES: NODE_SM_LIMIT}}}]},
-            "status": {"phase": "Pending"}})
-        plugin.ask("patch_node", annos={api.NODE_LOCK_ANNO:
-                                        nodelock.now_str()})
+        # the assignment, from the port's scheduler: this script plays
+        # only the API server's admission call and kube-scheduler
+        extender = extender_phase(name, plugin, sched_port, chips[0])
 
         # Allocate, as kubelet calls it
         with grpc.insecure_channel(sock) as ch:
@@ -2063,7 +2348,7 @@ def node_agent_phase(name: str, solo_img_s: float,
             "plugin_nvml_init_ms": cold["init_ms"],
             "plugin_nvml_enumerate_ms": cold["enumerate_ms"],
             "phase_s": took,
-            "allocate_ms": alloc_ms,
+            "allocate_ms": alloc_ms, "scheduler": extender,
             "quota_bytes": q["total"], "img_s": run["img_s"],
             "unthrottled_img_s": solo_img_s, "share": share,
             "plugin_used_mib_delta": used1 - used0,
@@ -2611,9 +2896,184 @@ def monitor_phase(name: str, solo_img_s: float, step_ms: dict, plugin,
     return result
 
 
+# ------------------------------------- (n) the scheduler at cluster scale.
+# python -m vtpu_torch.scheduler.loadtest: the port's scheduler daemon on
+# an in-memory apiserver of 1,024 nodes x 8 of this card (NVML's type
+# string and MiB, 10 replicas a card, NUMA 0,0,0,0,1,1,1,1, no mesh
+# coordinate), a seeded stream of 8,192 pods through /webhook, /filter
+# and /bind, in a child that imports no torch
+CLUSTER_NODES = 1024
+CLUSTER_PODS = 8192
+CLUSTER_SEED = 0
+CLUSTER_TIMEOUT_S = 600
+# the load test runs beside phase (l), whose gates read only the card's
+# memory (the scheduler takes none); before (l) starts it runs alone for
+# this long, its daemon up and serving, while the card is watched
+CLUSTER_ALONE_S = 10.0
+
+
+def process_tree(root: int) -> list:
+    """``root`` and its descendants' pids, from /proc."""
+    parents = {}
+    for entry in os.listdir("/proc"):
+        if entry.isdigit():
+            try:
+                with open(f"/proc/{entry}/stat") as f:
+                    parents[int(entry)] = int(f.read().rsplit(")", 1)[1]
+                                              .split()[1])
+            except (OSError, IndexError, ValueError):
+                pass
+    tree, todo = [], [root]
+    while todo:
+        pid = todo.pop()
+        tree.append(pid)
+        todo.extend(c for c, pp in parents.items() if pp == pid)
+    return tree
+
+
+def device_handles(pid: int) -> list:
+    """What of the CUDA stack the process holds: open /dev/nvidia* files
+    and mapped libcuda / libnvidia-ml (a context needs both)."""
+    held = []
+    try:
+        for fd in os.listdir(f"/proc/{pid}/fd"):
+            try:
+                target = os.readlink(f"/proc/{pid}/fd/{fd}")
+            except OSError:
+                continue
+            if target.startswith("/dev/nvidia"):
+                held.append(target)
+        with open(f"/proc/{pid}/maps") as f:
+            held += sorted({line.split()[-1] for line in f
+                            if "libcuda" in line or "libnvidia-ml" in line})
+    except OSError:
+        pass
+    return held
+
+
+class ClusterRun:
+    """Phase (n): ``python -m vtpu_torch.scheduler.loadtest`` in a child
+    that imports no torch. Gates: no card past its replicas, MiB or cores
+    by the pods' annotations, every numa-bind pod inside one NUMA node, no
+    refusal a plain first-fit could place at that point of the stream; the
+    card's used memory and compute processes unmoved while the load test
+    runs alone (its daemon started and serving), and none of its processes
+    holding a device file or the CUDA libraries at any point."""
+
+    def __init__(self, name: str):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        card_type = "NVIDIA-" + torch.cuda.get_device_name(0)
+        card_mb = int(smi("memory.total")[0])
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith(("CUDA_", "LD_PRELOAD", "VGPU_"))}
+        env["PYTHONPATH"] = ROOT
+        self.tmp = tempfile.mkdtemp(prefix="vgpu-smoke-cluster-")
+        self.out = open(os.path.join(self.tmp, "out"), "w+")
+        self.err = open(os.path.join(self.tmp, "err"), "w+")
+        self.used0, self.apps0 = int(smi("memory.used")[0]), compute_apps()
+        self.used_max, self.apps_max = self.used0, self.apps0
+        self.handles: list = []
+        self.pids: set = set()
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "vtpu_torch.scheduler.loadtest",
+             "--nodes", str(CLUSTER_NODES), "--pods", str(CLUSTER_PODS),
+             "--seed", str(CLUSTER_SEED), "--card-type", card_type,
+             "--card-mb", str(card_mb)],
+            env=env, cwd=self.tmp, stdout=self.out, stderr=self.err)
+        self.watcher = threading.Thread(target=self._watch, daemon=True)
+        self.watcher.start()
+        while time.perf_counter() - self.t0 < CLUSTER_ALONE_S:
+            self.used_max = max(self.used_max, int(smi("memory.used")[0]))
+            self.apps_max = max(self.apps_max, compute_apps())
+            time.sleep(1.0)
+        self.alone_s = time.perf_counter() - self.t0
+        print(f"(n) the load test alone for {self.alone_s:.1f} s, its daemon "
+              f"serving; then beside phase (l); on {name}", flush=True)
+
+    def _watch(self) -> None:
+        while self.proc.poll() is None:
+            for pid in process_tree(self.proc.pid):
+                self.pids.add(pid)
+                self.handles += device_handles(pid)
+            time.sleep(1.0)
+
+    def finish(self, name: str) -> list:
+        try:
+            self.proc.wait(timeout=max(
+                1.0, CLUSTER_TIMEOUT_S - (time.perf_counter() - self.t0)))
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+        self.watcher.join(timeout=30)
+        took = time.perf_counter() - self.t0
+        self.out.seek(0)
+        lines = self.out.read().strip().splitlines()
+        self.err.seek(0)
+        tail = self.err.read()[-4000:]
+        self.out.close()
+        self.err.close()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+        check(bool(lines), f"(n) no result, rc {self.proc.returncode}:\n"
+              f"{tail}")
+        res = json.loads(lines[-1])
+        ms = res["ms"]
+        print(f"(n) the port's scheduler at cluster scale: {res['nodes']} "
+              f"nodes x {res['cards_per_node']} {res['card_type']} "
+              f"({res['card_mb']} MiB, {res['replicas']} replicas a card, "
+              f"NUMA 0,0,0,0,1,1,1,1, no mesh coordinate), {res['pods']} "
+              f"seeded pods ({res['numa_bind_pods']} numa-bind): "
+              f"{res['placed']} placed, {res['refused']} refused; /filter "
+              f"p50 {ms['filter']['p50']:.3f} ms, p99 "
+              f"{ms['filter']['p99']:.3f} ms; /webhook p50 "
+              f"{ms['webhook']['p50']:.3f} ms, p99 "
+              f"{ms['webhook']['p99']:.3f} ms; /bind p50 "
+              f"{ms['bind']['p50']:.3f} ms, p99 {ms['bind']['p99']:.3f} ms; "
+              f"{res['binds_per_s']:.1f} binds/s over the "
+              f"{res['stream_s']:.1f} s stream (beside phase (l) after the "
+              f"first {self.alone_s:.0f} s); {res['cards_used']} cards in "
+              f"use; the load test {res['wall_s']:.1f} s, of it "
+              f"{res['registered_s']:.1f} s to the daemon's first "
+              f"registration poll; on {name}", flush=True)
+        print(f"(n) gates: cards past replicas/MiB/cores "
+              f"{res['overcommitted_cards']}, numa-bind pods split across "
+              f"NUMA nodes {res['numa_split_pods']}, refusals a first-fit "
+              f"places {res['n_wrong_refusals']} "
+              f"{res['wrong_refusals'][:3]}, errors {res['n_errors']} "
+              f"{res['errors'][:3]}; modules of torch/jax/vtpu "
+              f"{res['modules']}; alone: card memory used {self.used0} -> "
+              f"max {self.used_max} MiB, compute processes {self.apps0} -> "
+              f"max {self.apps_max}; device files or CUDA libraries held by "
+              f"its {len(self.pids)} processes {sorted(set(self.handles))}; "
+              f"rc {self.proc.returncode}; it took {took:.1f} s; on {name}",
+              flush=True)
+        check(self.proc.returncode == 0 and res["ok"],
+              f"(n) failed:\n{tail}")
+        check(res["placed"] + res["refused"] == CLUSTER_PODS
+              and res["refused"] < CLUSTER_PODS // 2,
+              f"(n) {res['placed']} placed, {res['refused']} refused")
+        check(res["modules"] == [],
+              f"(n) the child imported {res['modules']}")
+        check(self.used_max - self.used0 < CONTEXT_MARGIN_MB
+              and self.apps_max == self.apps0,
+              "(n) the scheduler took device memory or a context")
+        check(len(self.pids) >= 2 and not self.handles,
+              f"(n) the scheduler's processes {sorted(self.pids)} held "
+              f"{sorted(set(self.handles))}")
+        return [{"phase": "(n) scheduler at cluster scale", "took_s": took,
+                 "alone_s": self.alone_s,
+                 "card_memory_used_mib": [self.used0, self.used_max],
+                 "compute_processes": [self.apps0, self.apps_max],
+                 **{k: res[k] for k in (
+                     "nodes", "cards_per_node", "pods", "placed", "refused",
+                     "numa_bind_pods", "ms", "binds_per_s", "stream_s",
+                     "wall_s")}}]
+
+
 # ------------------------------------------------------- (l) the north star.
 NS_DEFAULT = ["--pods", "4", "--case", "1.1", "--quota", "3g",
-              "--seconds", "15"]
+              "--seconds", "6"]
 # tight mode at a smaller depth: fewer seconds, the same models
 NS_TIGHT = ["--tight", "--pods", "4", "--seconds", "4"]
 NS_TIMEOUT_S = 600
@@ -2629,10 +3089,17 @@ def northstar_run(name: str, label: str, argv: list, tmp: str) -> dict:
                                 "PYTORCH_CUDA_ALLOC_CONF"))}
     env["PYTHONPATH"] = ROOT
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "vtpu_torch.northstar", "--out", out, *argv],
-        env=env, cwd=tmp, capture_output=True, text=True,
-        timeout=NS_TIMEOUT_S)
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "vtpu_torch.northstar", "--out", out,
+             *argv], env=env, cwd=tmp, capture_output=True, text=True,
+            timeout=NS_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        # what it said before it was stopped (bytes, whatever text= says)
+        said = e.stderr.decode(errors="replace") if isinstance(
+            e.stderr, bytes) else e.stderr or ""
+        raise SmokeFailure(f"(l) {label}: no result in {NS_TIMEOUT_S} s; "
+                           f"its stderr:\n{said[-4000:]}") from None
     took = time.perf_counter() - t0
     check(os.path.exists(out), f"(l) {label}: no result, rc "
           f"{proc.returncode}:\n{proc.stderr[-4000:]}")
@@ -2660,7 +3127,7 @@ def _pod_lines(label: str, pods: list) -> None:
 
 def northstar_phase(name: str) -> list:
     """Phase (l): the north star, ``python -m vtpu_torch.northstar`` at 4
-    pods x 3 GiB on case 1.1 for 15 s, then ``--tight`` at 4 s. Every pod
+    pods x 3 GiB on case 1.1 for 6 s, then ``--tight`` at 4 s. Every pod
     exits clean, the allocation past a quota is refused, every pod's
     leakage is under 2% by the card's drop at its exit, the leakage is
     cross-checked, the canary under-counts under 2% of the quotas, and
@@ -2749,7 +3216,7 @@ PROFILE_LAUNCHES_TOL = 0.01
 PARITY_P50X = "0.5"
 # the profiling cost: timings of case 1.1 under libvgpu.so, profile on
 # (every call timed) and off, in turns
-COST_REPS = 3
+COST_REPS = 1
 
 
 def bench_cmd(name: str, label: str, args: list, tmp: str,
@@ -2863,7 +3330,7 @@ def bench_phase(name: str, alone_ms: float) -> dict:
         check(bool(top), "(m) profile: no top cost centers printed")
 
         lines, err = bench_cmd(name, "parity",
-                               ["--parity", "--cases", "1.1", "--reps", "3",
+                               ["--parity", "--cases", "1.1", "--reps", "1",
                                 "--profile-baseline", prof_json], tmp,
                                VTPU_PARITY_P50X=PARITY_P50X)
         parity = json.loads(lines[-1])
@@ -2934,6 +3401,8 @@ NATIVE = [
 
 
 def main() -> int:
+    if os.environ.pop(HOLD_ENV, None) and sys.stdin.readline() != "go\n":
+        return 0  # started ahead, its turn never came
     if len(sys.argv) > 1 and sys.argv[1] == "--quota-child":
         quota_child(sys.argv[2], int(sys.argv[3]))
         return 0
@@ -2954,36 +3423,99 @@ def main() -> int:
     print(f"card: {name}; driver {driver}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, cuDNN {torch.backends.cudnn.version()}, "
           f"{sys.executable}", flush=True)
+    # the libraries build (gcc, on the host) while the native, training
+    # and sharded phases run: none of them loads one
     t0 = time.perf_counter()
-    libs = native.build_all()
-    print(f"built {sorted(libs)} in {time.perf_counter() - t0:.2f} s",
-          flush=True)
-    phases = [infer_phase(name), train_phase(name), sharded_phase(name)]
-    fills = fill_phase(name)
-    phases += fills
-    phases.append(run_fill_phase(name, "1.1", FILL_QUOTAS[0]))
-    phases.append(neighbour_phase(name))
-    fp = fills[-1]["footprint"]["bytes"]
-    for alloc_conf in ALLOCATORS:
-        phases.append(quota_phase(name, "1.1", INFER_QUOTA, alloc_conf))
-    for alloc_conf in ALLOCATORS:
-        peak = phases[1]["peak_reserved_bytes"] if not alloc_conf \
-            else alone_peak("1.2", alloc_conf)
-        quota = math.ceil((peak + fp) * (1 + TRAIN_HEADROOM) / GiB) * GiB
-        print(f"case 1.2 quota, {alloc_conf or 'default allocator'}: "
-              f"max_memory_reserved alone {peak} B + footprint {fp} B, + "
-              f"{TRAIN_HEADROOM:.0%}, rounded up to whole GiB: {quota} B",
-              flush=True)
-        phases.append(dict(quota_phase(name, "1.2", quota, alloc_conf),
-                           max_memory_reserved_alone=peak))
-    phases += compute_phases(name)
+    side = futures.ThreadPoolExecutor(len(ALLOCATORS) + 1)
+    build = side.submit(
+        lambda: (native.build_all(), time.perf_counter() - t0))
+    beside = {}
+
+    def start_beside():
+        """Once case 1.2's steps are timed, beside the rest of the training
+        phase and the sharded phase, which time nothing:
+        dryrun_multichip(1), case 1.2's peak alone under the other
+        allocators (each a process of its own, none under the interposer),
+        and the first F1 child, started ahead (it waits before its first
+        CUDA call)."""
+        beside["dryrun"] = side.submit(dryrun)
+        beside["peaks"] = {conf: side.submit(alone_peak, "1.2", conf)
+                           for conf in ALLOCATORS[1:]}
+        build.result()
+        beside["fill"] = fill_child(FILL_QUOTAS[0])
+
+    phases = [infer_phase(name), train_phase(name, start_beside),
+              sharded_phase(name)]
+    phases[-1]["dryrun_multichip_1_s"] = dry_s = beside["dryrun"].result()
+    print(f"dryrun_multichip(1) passed in {dry_s:.1f} s, beside the "
+          f"training and sharded phases; on {name}", flush=True)
+    peaks = {conf: f.result() for conf, f in beside["peaks"].items()}
+    peaks[""] = phases[1]["peak_reserved_bytes"]
+    libs, build_s = build.result()
+    side.shutdown()
+    print(f"built {sorted(libs)} in {build_s:.2f} s, beside the phases "
+          f"above", flush=True)
+
+    # the memory phases, one child at a time on the card, each next child
+    # started ahead (its interpreter loads while the one before it runs)
+    fills, train_quotas = [], {}
+
+    def fill_step(quota):
+        def run(child):
+            fills.append(fill_phase(name, quota, child))
+            return fills[-1]
+        return (lambda: fill_child(quota), run)
+
+    def train_quota(alloc_conf: str) -> int:
+        """case 1.2's quota under ``alloc_conf``, once F1 has measured the
+        footprint charge"""
+        if not train_quotas:
+            fp = fills[-1]["footprint"]["bytes"]
+            for conf in ALLOCATORS:
+                peak = peaks[conf]
+                train_quotas[conf] = math.ceil(
+                    (peak + fp) * (1 + TRAIN_HEADROOM) / GiB) * GiB
+                print(f"case 1.2 quota, {conf or 'default allocator'}: "
+                      f"max_memory_reserved alone {peak} B + footprint "
+                      f"{fp} B, + {TRAIN_HEADROOM:.0%}, rounded up to "
+                      f"whole GiB: {train_quotas[conf]} B", flush=True)
+        return train_quotas[alloc_conf]
+
+    def quota_step(case_name, alloc_conf):
+        def quota():
+            return INFER_QUOTA if case_name == "1.1" else \
+                train_quota(alloc_conf)
+
+        def run(child):
+            res = quota_phase(name, case_name, quota(), alloc_conf, child)
+            if case_name == "1.2":
+                res["max_memory_reserved_alone"] = peaks[alloc_conf]
+            return res
+        return (lambda: QuotaChild(case_name, quota(), alloc_conf), run)
+
+    steps = [fill_step(q) for q in FILL_QUOTAS]
+    steps.append((lambda: run_fill_child("1.1", FILL_QUOTAS[0]),
+                  lambda child: run_fill_phase(name, "1.1", FILL_QUOTAS[0],
+                                               child)))
+    steps.append((neighbour_children,
+                  lambda pair: neighbour_phase(name, pair)))
+    steps += [quota_step(case_name, conf) for case_name in ("1.1", "1.2")
+              for conf in ALLOCATORS]
+    # then the compute plane's children and phase (k)'s child alone, all
+    # started ahead as the last memory phase starts
+    steps.append((compute_children,
+                  lambda children: compute_phases(name, children)))
+    *memory, (compute, zoo_alone) = pipelined(steps, beside["fill"])
+    phases += memory + compute
     (solo,) = [p["unthrottled_img_s"] for p in phases
                if p["phase"] == "(c) case 1.1 at 50%"]
     step_ms = {p["phase"].split()[2]: p["no SM limit"] for p in phases
                if p["phase"].startswith("(b) case ")}
-    phases += zoo_phase(name)
+    phases += zoo_phase(name, zoo_alone)
     phases += node_agent_phase(name, solo, step_ms)
+    cluster = ClusterRun(name)
     phases += northstar_phase(name)
+    phases += cluster.finish(name)
     (b11,) = [p for p in phases
               if p["phase"] == "(b) case 1.1 unthrottled cost"]
     phases.append(bench_phase(name, b11["alone"]))
@@ -3002,5 +3534,6 @@ if __name__ == "__main__":
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         sys.exit(1)
     finally:
+        stop_held()
         for d in _LOCK_DIR:
             shutil.rmtree(d, ignore_errors=True)

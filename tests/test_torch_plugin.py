@@ -26,6 +26,7 @@ libraries) once under a file lock, so test workers that load
 build fails this module's collection.
 """
 
+import base64
 import dataclasses
 import fcntl
 import json
@@ -952,3 +953,135 @@ def test_end_to_end_scheduler_to_libvgpu_region(tmp_path, monkeypatch,
             assert view.procs() == [] and view.used(0) == 0
     finally:
         plugin.stop()
+
+
+def test_end_to_end_port_scheduler_over_http_to_libvgpu_region(
+        tmp_path, mock_nvml, libs):
+    """The chain above with the port's scheduler in place of the JAX
+    one: its webhook, /filter and /bind answered over its HTTP app, then
+    the port's plugin Allocate and a child under libvgpu.so on the mock
+    libcuda.so.1 whose region carries the granted quota."""
+    import asyncio
+
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from vtpu_torch import device as port_device
+    from vtpu_torch.scheduler import Scheduler as PortScheduler
+    from vtpu_torch.scheduler.routes import build_app
+
+    nvml_lib, _ = mock_nvml
+    port_device.init_default_devices()
+    client = FakeKubeClient()   # one apiserver for scheduler and plugin
+    client.add_node(NODE)
+    config = PluginConfig(device_split_count=10,
+                          socket_dir=str(tmp_path / "sock"),
+                          shim_host_dir=str(tmp_path / "vgpu"))
+    server.install_shim_artifacts(config.shim_host_dir)
+    plugin = GPUDevicePlugin(nvml_lib, config, client, NODE)
+    plugin.start(register_with_kubelet=False)
+    sched = None
+    try:
+        Registrar(nvml_lib, plugin.rm, client, NODE).register_once()
+        sched = PortScheduler(client)
+        sched.register_from_node_annotations_once()
+        pod = {"metadata": {"name": "g", "namespace": "default",
+                            "uid": "uid-g", "annotations": {}},
+               "spec": {"containers": [{"name": "main", "resources": {
+                   "limits": {types.RESOURCE_GPU: 1, types.RESOURCE_MEM: 3000,
+                              types.RESOURCE_CORES: 50,
+                              types.RESOURCE_PRIORITY: 0}}}]},
+               "status": {"phase": "Pending"}}
+
+        async def extender():
+            http = TestClient(TestServer(build_app(sched)))
+            await http.start_server()
+            try:
+                resp = await http.post("/webhook", json={
+                    "apiVersion": "admission.k8s.io/v1",
+                    "kind": "AdmissionReview",
+                    "request": {"uid": "rev-g", "object": pod}})
+                review = await resp.json()
+                assert resp.status == 200 and \
+                    review["response"]["allowed"] is True
+                patch = json.loads(base64.b64decode(
+                    review["response"]["patch"]))
+                spec = patch[0]["value"]
+                assert spec["schedulerName"] == "vtpu-scheduler"
+                assert {"name": api.ENV_TASK_PRIORITY, "value": "0"} in \
+                    spec["containers"][0]["env"]
+                mutated = dict(pod, spec=spec)
+                for op in patch[1:]:
+                    key = op["path"].split("/")[-1].replace("~1", "/")
+                    if op["path"] == "/metadata/annotations":
+                        mutated["metadata"]["annotations"] = op["value"]
+                    else:
+                        mutated["metadata"]["annotations"][key] = \
+                            op["value"]
+                assert mutated["metadata"]["annotations"][
+                    api.TASK_PRIORITY_ANNO] == "0"
+                client.add_pod(mutated)
+                resp = await http.post("/filter", json={
+                    "Pod": client.get_pod("default", "g"),
+                    "NodeNames": [NODE]})
+                body = await resp.json()
+                assert resp.status == 200 and body["NodeNames"] == [NODE], \
+                    body
+                resp = await http.post("/bind", json={
+                    "PodName": "g", "PodNamespace": "default",
+                    "PodUID": "uid-g", "Node": NODE})
+                assert resp.status == 200 and \
+                    (await resp.json())["Error"] == ""
+            finally:
+                await http.close()
+
+        asyncio.new_event_loop().run_until_complete(extender())
+        annos = client.get_pod("default", "g")["metadata"]["annotations"]
+        assert annos[api.BIND_PHASE_ANNO] == "allocating"
+        assert client.bindings[0]["node"] == NODE
+        (placed,) = codec.decode_pod_devices(annos[api.TO_ALLOCATE_ANNO])
+        assert [(d.type, d.usedmem, d.usedcores) for d in placed] == [
+            ("NVIDIA", 3000, 50)]
+        assert placed[0].uuid in UUIDS
+
+        with grpc.insecure_channel(f"unix://{plugin.socket_path}") as ch:
+            resp = dp_grpc.DevicePluginStub(ch).Allocate(
+                pb.AllocateRequest(container_requests=[
+                    pb.ContainerAllocateRequest(
+                        devicesIDs=[f"{placed[0].uuid}::0"])]))
+        annos = client.get_pod("default", "g")["metadata"]["annotations"]
+        assert annos[api.BIND_PHASE_ANNO] == "success"
+        assert api.NODE_LOCK_ANNO not in client.get_node(NODE)[
+            "metadata"]["annotations"]
+        (ctr,) = resp.container_responses
+        env = runtime.process_env(ctr)
+        cache = env[api.ENV_SHARED_CACHE]
+        env.update({"PYTHONPATH": REPO, "PATH": os.environ["PATH"],
+                    "LD_LIBRARY_PATH": native.mock_cuda_dir(),
+                    "MOCK_CUDA_TOTAL": "16g"})
+        proc = subprocess.Popen([sys.executable, "-c", CHILD], env=env,
+                                stdin=subprocess.PIPE,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        try:
+            line = proc.stdout.readline()
+            assert line, proc.stderr.read()
+            seen = json.loads(line)
+            assert seen["interposed"] is True
+            assert seen["limit"] == 3000 * MiB
+            assert seen["rc"] == 0 and seen["total"] == 3000 * MiB
+            assert seen["visible"] == placed[0].uuid
+            with JaxRegionView(cache) as view:
+                assert view.hbm_limit(0) == 3000 * MiB
+                assert view.core_limit(0) == 50
+                assert [p.pid for p in view.procs()] == [seen["pid"]]
+            proc.communicate("exit\n", timeout=30)
+            assert proc.returncode == 0
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    finally:
+        if sched is not None:
+            sched.stop()
+        plugin.stop()
+        port_device.reset_registry()

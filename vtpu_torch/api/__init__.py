@@ -123,6 +123,55 @@ ENV_KUBERNETES_SERVICE_HOST = "KUBERNETES_SERVICE_HOST"
 ENV_KUBERNETES_SERVICE_PORT = "KUBERNETES_SERVICE_PORT"
 
 # --------------------------------------------------------------------------
+# Scheduler knobs (vtpu_torch/scheduler; the JAX scheduler's names, so one
+# deployment's values serve both vendors)
+# --------------------------------------------------------------------------
+
+#: the scheduler's component name (vtpu/contracts.py:71): pods name it in
+#: spec.schedulerName, which the webhook sets; it fills the same
+#: deployment role as the JAX package's scheduler
+SCHEDULER_NAME = "vtpu-scheduler"
+# scheduler/shard.py: decide-plane shards, multi-active shard groups (1
+# without HA) and the node label whose value pools nodes into one shard
+ENV_DECIDE_SHARDS = "VTPU_DECIDE_SHARDS"
+ENV_SHARD_GROUPS = "VTPU_SHARD_GROUPS"
+ENV_SHARD_KEY_LABEL = "VTPU_SHARD_KEY_LABEL"
+# scheduler/core.py: bounded decide-lock wait on the commit-failure path,
+# "0" commits inline instead of through the pipeline, the opt-in overlay
+# audit period, the commit failures a minute before /readyz fails, and
+# the deadline of a migrate-instead-of-delete rescue
+ENV_DECIDE_LOCK_TIMEOUT_S = "VTPU_DECIDE_LOCK_TIMEOUT_S"
+ENV_COMMIT_PIPELINE = "VTPU_COMMIT_PIPELINE"
+ENV_OVERLAY_AUDIT_S = "VTPU_OVERLAY_AUDIT_S"
+ENV_READYZ_COMMIT_FAILURES = "VTPU_READYZ_COMMIT_FAILURES"
+ENV_MIGRATE_DEADLINE_S = "VTPU_MIGRATE_DEADLINE_S"
+# scheduler/committer.py: workers, queue bound, retries, same-node patches
+# merged into one write, and bind's flush-barrier timeout
+ENV_COMMIT_WORKERS = "VTPU_COMMIT_WORKERS"
+ENV_COMMIT_QUEUE = "VTPU_COMMIT_QUEUE"
+ENV_COMMIT_RETRIES = "VTPU_COMMIT_RETRIES"
+ENV_COMMIT_COALESCE = "VTPU_COMMIT_COALESCE"
+ENV_FLUSH_TIMEOUT_S = "VTPU_FLUSH_TIMEOUT_S"
+# scheduler/preempt.py: candidate nodes a preemption search visits
+ENV_PREEMPT_MAX_NODES = "VTPU_PREEMPT_MAX_NODES"
+# scheduler/webhook.py: the cluster cap on a pod's host-memory reservation
+# and the service accounts allowed to write the migration annotations
+ENV_HOST_MEM_MAX_MB = "VTPU_HOST_MEM_MAX_MB"
+ENV_MIGRATION_WRITERS = "VTPU_MIGRATION_WRITERS"
+# scheduler/routes.py: executor sizes, the per-shard slot gate, and the
+# /filter intake's batch size, gather window and bound
+ENV_EXECUTOR_WORKERS = "VTPU_EXECUTOR_WORKERS"
+ENV_WEBHOOK_WORKERS = "VTPU_WEBHOOK_WORKERS"
+ENV_FILTER_SHARD_SLOTS = "VTPU_FILTER_SHARD_SLOTS"
+ENV_FILTER_BATCH = "VTPU_FILTER_BATCH"
+ENV_FILTER_BATCH_WINDOW_MS = "VTPU_FILTER_BATCH_WINDOW_MS"
+ENV_FILTER_INTAKE = "VTPU_FILTER_INTAKE"
+# scheduler/__main__.py: the rebalancer's and the migration planner's
+# periods; neither loop is ported yet, so a value above 0 is refused
+ENV_REBALANCE_S = "VTPU_REBALANCE_S"
+ENV_MIGRATE_S = "VTPU_MIGRATE_S"
+
+# --------------------------------------------------------------------------
 # Node-monitor knobs (vtpu_torch/monitor; the JAX monitor's names, so one
 # deployment's values serve both vendors)
 # --------------------------------------------------------------------------
@@ -234,6 +283,7 @@ MIGRATE_DEADLINE_ANNO = f"{DOMAIN}/migrate-deadline"
 # by the scheduler and read by the monitor
 TASK_PRIORITY_ANNO = f"{DOMAIN}/task-priority"
 TASK_PRIORITY_DEFAULT = 1
+TASK_PRIORITY_HIGH = 0
 PREEMPTED_BY_ANNO = f"{DOMAIN}/preempted-by"
 HBM_LIMIT_ANNO = f"{DOMAIN}/hbm-limit"
 # end-to-end trace stitch key (trace/core.py trace_id_of_pod)
@@ -243,6 +293,16 @@ TRACE_ID_ANNO = f"{DOMAIN}/trace-id"
 # domain's keys, since the scheduler's slice solver reads them
 NODE_SLICE_ANNO = "tpu.google.com/node-slice"
 SLICE_BLOCK_ANNO = "tpu.google.com/slice-block"
+# a gang's id and width, read by the scheduler's slice reservations
+# (scheduler/slice.py) from the pod, under the same TPU-domain keys
+SLICE_GROUP_ANNO = "tpu.google.com/slice-group"
+SLICE_HOSTS_ANNO = "tpu.google.com/slice-hosts"
+
+# the scheduler's own keys (vtpu/contracts.py:68-85, same wire strings):
+# the fencing generation stamped on every assignment it commits, and the
+# defragmentation mark its preemption engine prefers as victims
+SCHED_GEN_ANNO = f"{DOMAIN}/scheduler-generation"
+MIGRATION_CANDIDATE_ANNO = f"{DOMAIN}/migration-candidate"
 
 # card selection constraints, read by GPUDevices.check_type (reference:
 # nvidia/device.go:62-105)

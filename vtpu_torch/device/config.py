@@ -10,9 +10,12 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+from ..api import SCHEDULER_NAME
+
 
 @dataclass
 class SchedulerConfig:
+    scheduler_name: str = SCHEDULER_NAME
     default_mem: int = 0        # MB; 0 => whole card
     default_cores: int = 0      # SM %; 0 => fit anywhere
     default_replicas: int = 1   # devices per pod when only gpumem given

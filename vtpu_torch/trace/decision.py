@@ -35,6 +35,7 @@ CHIP_CORES_EXHAUSTED = "cores_exhausted"
 #: node-level rejection codes
 NODE_CAPACITY = "capacity"          # not enough fitting chips
 NODE_MESH = "mesh"                  # enough chips, no contiguous sub-mesh
+NODE_NUMA = "numa"                  # enough cards, none numa-bind can hold
 NODE_UNREGISTERED = "unregistered"  # candidate has no vGPU inventory
 NODE_NO_NODES = "no_nodes"          # nothing registered at all
 NODE_SLICE_GANG = "slice_gang"      # multi-host gang reservation refused
@@ -130,7 +131,12 @@ class Rejection:
                     f"(need {self.detail.get('need_mb', '?')}, free "
                     f"{self.detail.get('free_mb', '?')} of "
                     f"{self.detail.get('capacity_mb', '?')})")
-        if self.code == NODE_MESH:
+        if self.code == NODE_NUMA:
+            head = (f"{self.detail.get('fitting', '?')} card(s) fit but no "
+                    f"NUMA node holds {self.detail.get('need', '?')} of them "
+                    f"(numa-bind; at most "
+                    f"{self.detail.get('numa_most', '?')} on one)")
+        elif self.code == NODE_MESH:
             head = (f"{self.detail.get('fitting', '?')} chip(s) fit but no "
                     f"contiguous ICI sub-mesh of {self.detail.get('need', '?')}")
         else:

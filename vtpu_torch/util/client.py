@@ -13,6 +13,7 @@ nodes and pods, bind, and pod deletion events via a poll-style list.
 
 from __future__ import annotations
 
+import bisect
 import json
 import os
 import threading
@@ -535,14 +536,18 @@ class FakeKubeClient(KubeClient):
             with self._cond:
                 if rv < self._oldest_rv:
                     raise GoneError(resource_version)
+                # events are in rv order: start past `rv` by bisection,
+                # not by scanning the whole history on every wake-up
+                start = bisect.bisect_right(self._events, rv,
+                                            key=lambda e: e[0])
                 batch = [(erv, etype, json_copy(pod))
-                         for erv, etype, pod in self._events
-                         if erv > rv
-                         and _matches_selector(pod, field_selector)]
+                         for erv, etype, pod in self._events[start:]
+                         if _matches_selector(pod, field_selector)]
                 if not batch:
                     # non-matching events still advance the resume point
                     # (the apiserver does this via bookmarks)
-                    rv = max([rv] + [erv for erv, _, _ in self._events])
+                    if self._events:
+                        rv = max(rv, self._events[-1][0])
                     remaining = deadline - time.monotonic()
                     if remaining <= 0:
                         return

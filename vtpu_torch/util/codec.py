@@ -238,8 +238,45 @@ def decode_migrated_from(s: str) -> "tuple[int, str]":
 
 
 # --------------------------------------------------------------------------
-# Gang slice block (vtpu/util/codec.py:265-290), read by Allocate's mesh env
+# Gang slice block (vtpu/util/codec.py:226-290): written by the scheduler's
+# slice reservations, read back by its recovery and by Allocate's mesh env
 # --------------------------------------------------------------------------
+
+def encode_slice_block(slice_name: str, hosts: List[str],
+                       shape: "tuple | None" = None,
+                       coords: "List[tuple] | None" = None) -> str:
+    """The gang's solved host block, stamped on every confirmed member
+    (types.SLICE_BLOCK_ANNO). v1: "<slice-name>;host0,host1,...". v2
+    appends the block's mesh geometry, which Allocate turns into the
+    VTPU_MESH_* env:
+
+        "<slice>;h0,h1,...;<dx>x<dy>x<dz>;c0|c1|..."
+
+    where each cN is host N's block-relative coordinate ("x-y-z",
+    positional with the host list). Geometry is all-or-nothing: a shape
+    without one coord per host is refused rather than written half-formed
+    onto the durable bus."""
+    if not slice_name or not hosts:
+        raise CodecError("slice block needs a slice name and >=1 host")
+    base = f"{slice_name};{','.join(hosts)}"
+    if shape is None and coords is None:
+        return base
+    if shape is None or coords is None or len(coords) != len(hosts):
+        raise CodecError(
+            "slice block mesh geometry needs BOTH a shape and one "
+            "coord per host")
+    shape_s = "x".join(str(int(d)) for d in shape)
+    coords_s = "|".join("-".join(str(int(c)) for c in coord)
+                        for coord in coords)
+    return f"{base};{shape_s};{coords_s}"
+
+
+def decode_slice_block(s: str) -> "tuple[str, List[str]]":
+    """(slice name, hosts) of either wire version: the recovery
+    rebuild's view, which only needs the host block."""
+    name, hosts, _, _ = decode_slice_block_mesh(s)
+    return name, hosts
+
 
 def decode_slice_block_mesh(
     s: str,

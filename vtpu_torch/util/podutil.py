@@ -2,7 +2,7 @@
 parsers the node monitor shares with it.
 
 The port's copy of vtpu/util/podutil.py:25-285, reduced to what the device
-plugin and the monitor call (reference: pkg/util/util.go:41-66 pending-pod lookup, 174-236
+plugin, the monitor and the scheduler call (reference: pkg/util/util.go:41-66 pending-pod lookup, 174-236
 next-device-request + erase-after-consume, 238-294 annotation patches).
 
 The device-plugin/scheduler identity dance (SURVEY.md §7 hard part 3):
@@ -181,6 +181,23 @@ def device_annotations(
         types.TO_ALLOCATE_ANNO: encoded,
         types.ASSIGNED_TIME_ANNO: str(time.time_ns()),
     }
+
+
+def patch_pod_device_annotations(
+    client: KubeClient,
+    pod: Dict[str, Any],
+    node_name: str,
+    pod_devices: types.PodDevices,
+) -> None:
+    """A scheduler Filter's winning assignment -> pod annotations in one
+    write (vtpu/util/podutil.py:229; reference: scheduler.go:389-395 via
+    util.go:262-294)."""
+    meta = pod["metadata"]
+    client.patch_pod_annotations(
+        meta.get("namespace", "default"),
+        meta["name"],
+        device_annotations(node_name, pod_devices),
+    )
 
 
 def pod_allocation_try_success(

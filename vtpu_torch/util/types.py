@@ -25,6 +25,7 @@ from ..api import (  # noqa: F401  (re-exported vocabulary)
     MIGRATE_DEADLINE_ANNO,
     MIGRATED_FROM_ANNO,
     MIGRATING_TO_ANNO,
+    MIGRATION_CANDIDATE_ANNO,
     NODE_HOST_MEM_ANNO,
     NODE_LOCK_ANNO,
     NODE_REGISTER_ANNO,
@@ -39,9 +40,13 @@ from ..api import (  # noqa: F401  (re-exported vocabulary)
     RESOURCE_MEM,
     RESOURCE_MEM_PERCENT,
     RESOURCE_PRIORITY,
+    SCHED_GEN_ANNO,
     SLICE_BLOCK_ANNO,
+    SLICE_GROUP_ANNO,
+    SLICE_HOSTS_ANNO,
     TASK_PRIORITY_ANNO,
     TASK_PRIORITY_DEFAULT,
+    TASK_PRIORITY_HIGH,
     TO_ALLOCATE_ANNO,
     TRACE_ID_ANNO,
     USE_GPUTYPE_ANNO,
