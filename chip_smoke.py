@@ -195,6 +195,27 @@ built:
    its limit and usage; the sweep latency is printed; the monitor took no
    context and no device memory; every region is clean after its pod
    exits; the phase takes under 120 s, pod U2's time apart;
+11a. phase (o), one live move (``python -m vtpu_torch.scheduler.livemove``
+   in a child that imports no torch): the port's scheduler with the
+   rebalancer and the migration planner on (``VTPU_REBALANCE_S``,
+   ``VTPU_MIGRATE_S``), a device plugin and a node monitor (its drain
+   coordinator, feedback loop and ``/nodeinfo``) for each of two nodes
+   that both register this card (node to node for the scheduler, card to
+   the same card physically), on one in-memory apiserver; MigratableModel
+   pods (``vtpu_torch.models.offload``: dim 1024, layers 4096 x 3, batch
+   256, 453,181,452 B of f32 parameters and Adam moments pinned on the
+   host under a 1 GiB ``CUDA_HOST_MEMORY_LIMIT``) under ``libvgpu.so``,
+   each started from its node's ``Allocate`` response. The source's host
+   ledger grows at setup by 1.00-1.01x the state (charged by libvgpu.so
+   where the driver pins it, no cooperative charge beside), its snapshot
+   adds exactly the state, its region launches stand still from the
+   monitor's block to 2 s past the cutover, the cutover moves the
+   assignment to the second node, the destination resumes and attaches,
+   then the source's snapshot charge is released to the byte; the
+   destination's 3 losses after the resume equal a control pod's (rel
+   1e-6, abs 1e-7); the card's used memory is back within 256 MiB; each
+   protocol step's time, the planner's blackout and the step's ms are
+   printed;
 11b. phase (n), the scheduler at cluster scale: ``python -m
    vtpu_torch.scheduler.loadtest`` in a child that imports no torch runs
    the port's scheduler daemon on an in-memory apiserver of 1,024 nodes x
@@ -2912,6 +2933,83 @@ CLUSTER_TIMEOUT_S = 600
 CLUSTER_ALONE_S = 10.0
 
 
+# phase (o): one live move at livemove's defaults, the offload model at a
+# realistic size (dim 1024, layers 4096 x 3, batch 256: 37,765,121 f32
+# parameters, 453,181,452 B of parameters and Adam moments on the host,
+# under a 1 GiB host limit)
+MOVE_TIMEOUT_S = 240
+# the card's used memory after the phase against before it: the pods'
+# contexts and caches gone (what a context holds, PERF.md)
+MOVE_MEMORY_MARGIN_MB = 256
+
+
+def livemove_phase(name: str) -> dict:
+    """Phase (o): ``python -m vtpu_torch.scheduler.livemove`` on the card:
+    the port's scheduler with the rebalancer and the migration planner on,
+    a device plugin and a node monitor for each of two nodes (both register
+    this card: node to node for the scheduler, card to the same card), and
+    MigratableModel pods under libvgpu.so started from Allocate responses.
+    Its gates, held there: the source's host ledger grows at setup by
+    1.00-1.01x the model's host bytes (libvgpu.so charges the pinned
+    tensors; no second, cooperative charge), the snapshot adds exactly the
+    host bytes, the drained source's region launches stand still from the
+    monitor's block to 2 s past the cutover, the cutover rewrites the
+    assignment to the destination node, the destination attaches and the
+    source's snapshot charge is then released to the byte, and the
+    destination's 3 losses after the resume equal a control pod's 3 after
+    the same prefix (rel 1e-6, abs 1e-7). Here: the card's used memory is
+    back within 256 MiB of its value before the phase; each protocol
+    step's time and the step's ms are printed."""
+    t0 = time.perf_counter()
+    before = int(smi("memory.used")[0])
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("CUDA_", "LD_PRELOAD", "VGPU_",
+                                "PYTORCH_CUDA_ALLOC_CONF"))}
+    env.update({"PYTHONPATH": ROOT, api.ENV_LOCK_DIR: run_lock_dir()})
+    tmp = tempfile.mkdtemp(prefix="vgpu-smoke-move-")
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "vtpu_torch.scheduler.livemove"],
+            env=dict(env, TMPDIR=tmp), cwd=tmp,
+            capture_output=True, text=True, timeout=MOVE_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        said = e.stderr.decode(errors="replace") if isinstance(
+            e.stderr, bytes) else e.stderr or ""
+        raise SmokeFailure(f"(o) no result in {MOVE_TIMEOUT_S} s:\n"
+                           f"{said[-4000:]}") from None
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    try:
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+    except (ValueError, IndexError):
+        res = {"ok": False}
+    check(proc.returncode == 0 and res.get("ok"),
+          f"(o) live move rc {proc.returncode}: {res}\n"
+          f"{proc.stderr[-4000:]}")
+    time.sleep(1.0)  # the pods' contexts leave the card
+    after = int(smi("memory.used")[0])
+    check(abs(after - before) <= MOVE_MEMORY_MARGIN_MB,
+          f"(o) the card's used memory {before} -> {after} MiB")
+    step_ms = sorted(res["step_ms"])[len(res["step_ms"]) // 2]
+    print(f"(o) live move: {res['host_bytes']} B of host state, setup "
+          f"grew the ledger {res['setup_growth']:.6f}x, the snapshot "
+          f"{res['snapshot_growth_bytes']} B, released "
+          f"{res['release_bytes']} B; {res['steps_before_drain']} steps "
+          f"before the drain, step {step_ms:.2f} ms (median); mark to "
+          f"stamp {res['mark_to_stamp_s']:.3f} s, drain to ack "
+          f"{res['stamp_to_ack_s']:.3f} s, ack to cutover "
+          f"{res['ack_to_cutover_s']:.3f} s, blackout (planner) "
+          f"{res['blackout_s']:.4f} s, cutover to complete "
+          f"{res['cutover_to_complete_s']:.3f} s; launches while drained "
+          f"{res['blocked_launches']}; losses max rel err "
+          f"{res['loss_max_rel_err']:.3g}; card {before} -> {after} MiB; "
+          f"phase {time.perf_counter() - t0:.1f} s; on {name}", flush=True)
+    return {"phase": "(o) live move", **{k: v for k, v in res.items()
+                                         if k != "ok"},
+            "step_ms_median": step_ms, "card_used_mib": [before, after],
+            "took_s": time.perf_counter() - t0}
+
+
 def process_tree(root: int) -> list:
     """``root`` and its descendants' pids, from /proc."""
     parents = {}
@@ -3513,6 +3611,7 @@ def main() -> int:
                if p["phase"].startswith("(b) case ")}
     phases += zoo_phase(name, zoo_alone)
     phases += node_agent_phase(name, solo, step_ms)
+    phases.append(livemove_phase(name))
     cluster = ClusterRun(name)
     phases += northstar_phase(name)
     phases += cluster.finish(name)

@@ -737,13 +737,45 @@ def test_a_drained_streams_wait_for_a_launch_is_not_charged(tmp_path, libs):
     assert spans[0] >= 5, spans
 
 
-def _hostbound_charge(tmp_path, then, **extra):
+def test_a_drained_stream_on_a_shared_core_is_charged_its_busy_time(
+        tmp_path, libs):
+    """F9: the pod of the test above shares one core with three busy
+    processes of this test (both pinned there by sched_setaffinity), so its
+    host is delayed at random for whole time slices. Each of 4 runs is
+    charged 0.8-1.1x the mock's busy time. With one span in 32 sampled on
+    every stream, the ~27 samples a run took followed the host's delays
+    badly: 0.837-1.116x over six runs, two past the bound; sampling one
+    span in 8 of a stream busy less than half its time reads
+    0.908-1.043x."""
+    core = max(os.sched_getaffinity(0))
+    spinners = [subprocess.Popen([sys.executable, "-c", "while True: pass"])
+                for _ in range(3)]
+    try:
+        for p in spinners:
+            os.sched_setaffinity(p.pid, {core})
+        runs = [_hostbound_charge(tmp_path / f"run{i}", "host_bound",
+                                  core=core, MOCK_CUDA_LAUNCH_NS=200_000)
+                for i in range(4)]
+    finally:
+        for p in spinners:
+            p.kill()
+            p.wait(timeout=30)
+    for charged, spans in runs:
+        assert 0.8 <= charged <= 1.1, runs
+        assert spans[0] >= 5, runs
+
+
+def _hostbound_charge(tmp_path, then, core=None, **extra):
     """the "hostbound" child (0.2 ms kernels, ~0.4 ms of host between
-    them) then ``then``: (launch_ns charged over the mock's busy time, the
-    sampled spans' count and busy fraction in millionths)"""
+    them) then ``then``, pinned to ``core`` when one is given: (launch_ns
+    charged over the mock's busy time, the sampled spans' count and busy
+    fraction in millionths)"""
+    tmp_path.mkdir(exist_ok=True)
     env, cache = child_env(tmp_path, MOCK_CUDA_KERNEL_NS=200_000, **extra)
     proc = spawn(env, "hostbound", 2.0, 0.5, then)
     try:
+        if core is not None:
+            os.sched_setaffinity(proc.pid, {core})
         assert line(proc)["warm"]
         with RegionView(cache) as view:
             (before,) = view.procs()

@@ -15,6 +15,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import pytest
 
@@ -407,3 +408,46 @@ def test_no_card_and_no_mock_exits_nonzero(tmp_path):
     assert p.returncode != 0
     assert not out.exists()
     assert p.stdout.strip() == ""
+
+
+# a parent whose pod 1 exits with code 3 at once, before its barrier
+_DIES_BEFORE_BARRIER = r"""
+import subprocess, sys
+real = subprocess.Popen
+
+
+class Popen(real):
+    def __init__(self, args, env=None, **kw):
+        if env is not None and env.get("NS_POD") == "1":
+            args = [sys.executable, "-c", "import sys; sys.stderr.write("
+                    "'pod one gave up\\n'); sys.exit(3)"]
+        super().__init__(args, env=env, **kw)
+
+
+subprocess.Popen = Popen
+from vtpu_torch.northstar.__main__ import main
+sys.exit(main(sys.argv[1:]))
+"""
+
+
+def test_a_pod_that_dies_before_its_barrier_fails_the_run_fast(tmp_path):
+    """F10: pod 1 exits with rc 3 before its barrier while pod 0 runs a
+    30 s loop. The parent fails within 30 s (not at its deadline, 900 s
+    past the loop), names the pod, its rc and its pod1.err, stops pod 0
+    and leaves no run directory behind."""
+    run_tmp = tmp_path / "tmp"
+    run_tmp.mkdir()
+    out = tmp_path / "ns.json"
+    t0 = time.monotonic()
+    p = subprocess.run(
+        [sys.executable, "-c", _DIES_BEFORE_BARRIER, "--backend", "mock",
+         "--pods", "2", "--quota", "256m", "--seconds", "30", "--out",
+         str(out)], env=_clean_env(TMPDIR=str(run_tmp)), cwd=str(tmp_path),
+        capture_output=True, text=True, timeout=120)
+    took = time.monotonic() - t0
+    assert p.returncode == 1, p.stderr[-2000:]
+    assert took < 30, took
+    assert "pod 1 exited with rc 3 before its barrier" in p.stderr
+    assert "pod one gave up" in p.stderr
+    assert not out.exists()
+    assert list(run_tmp.iterdir()) == []

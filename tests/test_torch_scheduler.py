@@ -472,7 +472,9 @@ def test_f8_coordinates_keep_the_box_rule():
 def test_scheduler_imports_neither_jax_nor_vtpu_nor_torch():
     code = ("import json, sys, vtpu_torch.scheduler, "
             "vtpu_torch.scheduler.routes, vtpu_torch.scheduler.__main__, "
-            "vtpu_torch.scheduler.loadtest; "
+            "vtpu_torch.scheduler.loadtest, vtpu_torch.scheduler.livemove, "
+            "vtpu_torch.ha, vtpu_torch.scheduler.migrate, "
+            "vtpu_torch.scheduler.rebalancer; "
             "print(json.dumps(sorted(m for m in sys.modules if "
             "m.split('.')[0] in ('jax', 'vtpu', 'torch'))))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -484,21 +486,83 @@ def test_scheduler_imports_neither_jax_nor_vtpu_nor_torch():
                             "--help"], cwd=REPO, capture_output=True,
                            text=True, timeout=120)
     assert help_.returncode == 0 and "--fake-kube" in help_.stdout
-    assert "--ha" not in help_.stdout
+    for flag in ("--ha", "--lease-name", "--lease-namespace"):
+        assert flag in help_.stdout
 
 
-@pytest.mark.parametrize("argv,env,needle", [
-    (["--ha"], {}, "unrecognized arguments: --ha"),
-    (["--lease-name", "x"], {}, "unrecognized arguments"),
-    (["--fake-kube"], {"VTPU_REBALANCE_S": "5"}, "ROADMAP item 14"),
-    (["--fake-kube"], {"VTPU_MIGRATE_S": "1"}, "ROADMAP item 14"),
+# the daemon in a thread of its own process on an in-memory apiserver;
+# prints its threads and the apiserver's leases once the threads the
+# case names run
+_DAEMON = r"""
+import json, socket, sys, threading, time
+from vtpu_torch.scheduler.__main__ import main
+from vtpu_torch.util.client import FakeKubeClient
+
+want = sys.argv[1].split(",")
+argv = sys.argv[2:]
+
+
+def port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+client = FakeKubeClient()
+threading.Thread(target=main, args=([
+    "--http-bind", f"127.0.0.1:{port()}",
+    "--metrics-bind", f"127.0.0.1:{port()}", *argv],),
+    kwargs={"client": client}, daemon=True).start()
+deadline = time.time() + 60
+while time.time() < deadline:
+    names = sorted(t.name for t in threading.enumerate())
+    leases = sorted((k, v["spec"]["holderIdentity"],
+                     v["spec"]["leaseTransitions"])
+                    for k, v in client._leases.items())
+    if all(w in names for w in want if w != "lease") and (
+            "lease" not in want or leases):
+        break
+    time.sleep(0.05)
+print(json.dumps({"threads": names, "leases": leases}), flush=True)
+"""
+
+
+@pytest.mark.parametrize("want,argv,env,leases", [
+    # --ha: one lease, an HACoordinator that promotes this instance
+    ("vtpu-ha-coordinator,lease", ["--ha"], {},
+     [["kube-system/vtpu-scheduler", "sched-0", 1]]),
+    # the lease's name and namespace from the flags
+    ("vtpu-ha-coordinator,lease",
+     ["--ha", "--lease-name", "vgpu-leader", "--lease-namespace", "ops"],
+     {}, [["ops/vgpu-leader", "sched-0", 1]]),
+    # VTPU_SHARD_GROUPS=2 with --ha: a GroupCoordinator, one lease a group
+    ("vtpu-ha-groups,lease", ["--ha"],
+     {"VTPU_SHARD_GROUPS": "2", "VTPU_DECIDE_SHARDS": "2",
+      "VTPU_SCHEDULER_PEERS": "1"},
+     [["kube-system/vtpu-scheduler-g00", "sched-0", 1],
+      ["kube-system/vtpu-scheduler-g01", "sched-0", 1]]),
+    # VTPU_REBALANCE_S: the rebalancer; no --ha, no lease
+    ("vtpu-rebalancer", [], {"VTPU_REBALANCE_S": "5"}, []),
+    # VTPU_MIGRATE_S: the planner
+    ("vtpu-migrate", [], {"VTPU_MIGRATE_S": "1"}, []),
 ])
-def test_daemon_refuses_what_is_not_ported(argv, env, needle):
-    out = subprocess.run([sys.executable, "-m", "vtpu_torch.scheduler",
-                          *argv], cwd=REPO, capture_output=True, text=True,
-                         timeout=120, env=dict(os.environ, **env))
-    assert out.returncode != 0
-    assert needle in out.stderr
+def test_daemon_runs_what_cmd_scheduler_runs(want, argv, env, leases):
+    """cmd/scheduler.py:71-211 on the port: --ha joins the leader-elected
+    pair (an HACoordinator on one lease, a GroupCoordinator with a lease a
+    shard group under VTPU_SHARD_GROUPS), and a period above 0 starts the
+    rebalancer or the migration planner."""
+    out = subprocess.run(
+        [sys.executable, "-c", _DAEMON, want, *argv], cwd=REPO,
+        capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, PYTHONPATH=REPO, POD_NAME="sched-0", **env))
+    assert out.returncode == 0, out.stderr[-2000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    for name in want.split(","):
+        if name != "lease":
+            assert name in got["threads"], got
+    assert got["leases"] == leases
+    loops = {"vtpu-rebalancer", "vtpu-migrate"}
+    assert loops & set(got["threads"]) == loops & set(want.split(","))
 
 
 def test_metric_families_are_renamed_and_coexist():

@@ -5,14 +5,21 @@ port's scheduler get the same node annotations (encoded once by the
 port's codec, which is wire-identical to the JAX one), the same seeded
 pods, and each its own in-memory apiserver. Their answers are compared
 after the JAX side's strings are mapped ``vTPU`` -> ``vGPU``, the one
-rename between the packages."""
+rename between the packages. ``run_reference_test`` (below) runs the JAX
+package's own test functions against either package the same way."""
 
 from __future__ import annotations
 
+import ast
 import base64
+import contextlib
 import copy
+import importlib
+import inspect
 import json
+import sys
 import time
+import types as pytypes
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -327,3 +334,365 @@ def decode_review(review: Dict) -> Dict:
     if "patch" in resp:
         resp["patch"] = json.loads(base64.b64decode(resp["patch"]))
     return dict(review, response=resp)
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's own tests, run against either package
+# ---------------------------------------------------------------------------
+#
+# A test function of the JAX package's suite (tests/test_ha.py, the chaos
+# files, tests/test_migrate.py) runs here twice on the same inputs: once as
+# written, once with every name it takes from ``vtpu`` bound to the port's
+# object of the same name in the same module (``vtpu.a.b`` ->
+# ``vtpu_torch.a.b``). Helpers it takes from other test modules are rebound
+# the same way, and imports inside a function body find the port's modules
+# (sys.modules is swapped for the call). Both runs see the device plane as
+# the port's: ``types``' TPU resource and handshake names read as the
+# NVIDIA ones, and the JAX registry holds the port's GPUDevices. Each run
+# records what it wrote to its apiserver (every pod annotation, deletion,
+# binding, node annotation, each lease's holder and generation), each
+# fenced commit and each recover()'s replay count; the records are
+# compared after ``vTPU`` -> ``vGPU``.
+
+#: the TPU vendor's names in ``types``/``contracts``, read as the GPU's
+GPU_NAMES = {
+    "RESOURCE_TPU": api.RESOURCE_GPU, "RESOURCE_MEM": api.RESOURCE_MEM,
+    "RESOURCE_CORES": api.RESOURCE_CORES,
+    "RESOURCE_PRIORITY": api.RESOURCE_PRIORITY,
+    "RESOURCE_HOST_MEM": api.RESOURCE_HOST_MEM,
+    "HANDSHAKE_ANNO": api.HANDSHAKE_ANNO,
+    "NODE_REGISTER_ANNO": api.NODE_REGISTER_ANNO,
+}
+#: JAX names with no port counterpart that only tag a function at import
+KEEP_JAX = {("vtpu.contracts", "covers_edge")}
+#: annotations whose values hold a clock reading: compared for presence
+CLOCK_ANNOS = (api.ASSIGNED_TIME_ANNO, api.BIND_TIME_ANNO,
+               api.MIGRATE_DEADLINE_ANNO, api.NODE_LOCK_ANNO,
+               api.HANDSHAKE_ANNO)
+
+_LOG: List[Any] = []
+#: the schedulers a run made: their commits drained before its record is
+#: read, then stopped
+_SCHEDS: List[Any] = []
+
+
+class GpuNames:
+    """A ``types``/``contracts`` module whose TPU device-plane names read
+    as the GPU's."""
+
+    def __init__(self, mod) -> None:
+        self._mod = mod
+
+    def __getattr__(self, name: str):
+        if name in GPU_NAMES:
+            return GPU_NAMES[name]
+        return getattr(self._mod, name)
+
+
+def _port_modname(name: str) -> str:
+    if name == "vtpu.contracts":
+        return "vtpu_torch.api"
+    return "vtpu_torch" + name[len("vtpu"):]
+
+
+def _resolve(modname: str, attr: Optional[str], port: bool):
+    """``from modname import attr`` (``import modname`` when attr is None)
+    for one side."""
+    if port and (modname, attr) not in KEEP_JAX:
+        modname = _port_modname(modname)
+    mod = importlib.import_module(modname)
+    value = mod
+    if attr is not None:
+        try:
+            value = importlib.import_module(f"{modname}.{attr}")
+        except ImportError:
+            value = getattr(mod, attr)
+    if isinstance(value, pytypes.ModuleType) and value.__name__.split(
+            ".")[-1] in ("types", "contracts", "api"):
+        return GpuNames(value)
+    if value is jax_device:
+        return JaxDeviceWithGpus()
+    return value
+
+
+class JaxDeviceWithGpus:
+    """The JAX ``vtpu.device`` whose default registry also holds the
+    port's GPUDevices."""
+
+    def __getattr__(self, name: str):
+        return getattr(jax_device, name)
+
+    @staticmethod
+    def init_default_devices():
+        jax_device.init_default_devices()
+        jax_device.register(GPUDevices())
+
+
+def _imports(modname: str):
+    """(module level, anywhere): the ``from vtpu... import`` and ``from
+    tests... import`` bindings of a test module's source."""
+    src = inspect.getsource(importlib.import_module(modname))
+    tree = ast.parse(src)
+    top, inner = [], set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.module and \
+                node.module.split(".")[0] in ("vtpu", "tests"):
+            inner.add(node.module)
+            for a in node.names:
+                inner.add(f"{node.module}.{a.name}")
+        elif isinstance(node, ast.Import):
+            inner |= {a.name for a in node.names
+                      if a.name.split(".")[0] in ("vtpu", "tests")}
+    for node in tree.body:
+        if isinstance(node, ast.ImportFrom) and node.module and \
+                node.module.split(".")[0] in ("vtpu", "tests"):
+            for a in node.names:
+                top.append((node.module, a.name, a.asname or a.name))
+    return top, inner
+
+
+_VIEWS: Dict[Tuple[str, bool], Dict[str, Any]] = {}
+
+
+def _rebind(obj, glb: Dict[str, Any], modname: str, port: bool):
+    if isinstance(obj, pytypes.FunctionType) and obj.__module__ == modname:
+        fn = pytypes.FunctionType(obj.__code__, glb, obj.__name__,
+                                  obj.__defaults__, obj.__closure__)
+        fn.__kwdefaults__ = obj.__kwdefaults__
+        fn.__dict__.update(obj.__dict__)
+        fn.__qualname__ = obj.__qualname__
+        return fn
+    if isinstance(obj, (staticmethod, classmethod)):
+        return type(obj)(_rebind(obj.__func__, glb, modname, port))
+    if isinstance(obj, property):
+        return property(*(_rebind(f, glb, modname, port) if f else None
+                          for f in (obj.fget, obj.fset, obj.fdel)))
+    if isinstance(obj, type) and obj.__module__ == modname:
+        bases = tuple(module_view(b.__module__, port)[b.__name__]
+                      if b.__module__.startswith("tests.") else b
+                      for b in obj.__bases__)
+        body = {k: _rebind(v, glb, modname, port)
+                for k, v in obj.__dict__.items()
+                if k not in ("__dict__", "__weakref__")}
+        return type(obj.__name__, bases, body)
+    return obj
+
+
+def module_view(modname: str, port: bool) -> Dict[str, Any]:
+    """The globals of test module ``modname`` for one side: its ``vtpu``
+    names bound to that side's objects (the GPU's names in ``types``), the
+    recording apiserver and scheduler, its test helpers rebound alike."""
+    key = (modname, port)
+    if key in _VIEWS:
+        return _VIEWS[key]
+    mod = importlib.import_module(modname)
+    glb: Dict[str, Any] = dict(mod.__dict__)
+    _VIEWS[key] = glb
+    top, _ = _imports(modname)
+    for src, attr, name in top:
+        if src.startswith("tests"):
+            glb[name] = module_view(src, port)[attr] if hasattr(
+                importlib.import_module(src), attr) else glb[name]
+        else:
+            glb[name] = _resolve(src, attr, port)
+    for name in ("FakeKubeClient", "Scheduler"):
+        if name in glb:
+            glb[name] = _recording(port)[name]
+    for name, value in list(glb.items()):
+        glb[name] = _rebind(value, glb, modname, port)
+    return glb
+
+
+_RECORDING: Dict[bool, Dict[str, type]] = {}
+
+
+def _norm_annos(annos) -> Dict[str, Any]:
+    out = {}
+    for k, v in (annos or {}).items():
+        out[k] = "<time>" if k in CLOCK_ANNOS and v else v
+    return out
+
+
+def _recording(port: bool) -> Dict[str, type]:
+    """The recording FakeKubeClient and Scheduler of one side."""
+    if port in _RECORDING:
+        return _RECORDING[port]
+    client_cls = PortClient if port else JaxClient
+    sched_cls = PortScheduler if port else JaxScheduler
+
+    class Client(client_cls):
+        def patch_pod_annotations(self, namespace, name, annotations,
+                                  *a, **k):
+            out = super().patch_pod_annotations(namespace, name,
+                                                annotations, *a, **k)
+            _LOG.append(("pod", namespace, name, _norm_annos(annotations)))
+            return out
+
+        def patch_pods_annotations_bulk(self, patches, *a, **k):
+            out = super().patch_pods_annotations_bulk(patches, *a, **k)
+            for p in patches:
+                _LOG.append(("pod", *[x for x in p if isinstance(x, str)],
+                             _norm_annos(next(x for x in p
+                                              if isinstance(x, dict)))))
+            return out
+
+        def delete_pod(self, namespace, name, *a, **k):
+            out = super().delete_pod(namespace, name, *a, **k)
+            _LOG.append(("delete", namespace, name))
+            return out
+
+        def bind_pod(self, namespace, name, node, *a, **k):
+            out = super().bind_pod(namespace, name, node, *a, **k)
+            _LOG.append(("bind", namespace, name, node))
+            return out
+
+        def patch_node_annotations(self, name, annotations, *a, **k):
+            out = super().patch_node_annotations(name, annotations, *a, **k)
+            _LOG.append(("node", name, _norm_annos(annotations)))
+            return out
+
+        def _lease(self, obj):
+            spec = obj.get("spec", {}) or {}
+            _LOG.append(("lease", obj["metadata"]["name"],
+                         spec.get("holderIdentity"),
+                         spec.get("leaseTransitions")))
+            return obj
+
+        def create_lease(self, namespace, name, spec, *a, **k):
+            return self._lease(super().create_lease(namespace, name, spec,
+                                                    *a, **k))
+
+        def update_lease_guarded(self, namespace, name, spec, *a, **k):
+            return self._lease(super().update_lease_guarded(
+                namespace, name, spec, *a, **k))
+
+    class Sched(sched_cls):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            _SCHEDS.append(self)
+
+        def recover(self, *a, **k):
+            restored = super().recover(*a, **k)
+            _LOG.append(("recover", restored))
+            return restored
+
+    Client.__name__ = "FakeKubeClient"
+    Sched.__name__ = "Scheduler"
+    _RECORDING[port] = {"FakeKubeClient": Client, "Scheduler": Sched}
+    return _RECORDING[port]
+
+
+@contextlib.contextmanager
+def _fences_recorded():
+    """Each FencedError raised (either package's) joins the record."""
+    from vtpu.scheduler import committer as jc
+    from vtpu_torch.scheduler import committer as pc
+    saved = [(c, c.__init__) for c in (jc.FencedError, pc.FencedError)]
+
+    def wrap(init):
+        def __init__(self, *a, **k):
+            _LOG.append(("fenced", to_port_strings(str(a[0]) if a else "")))
+            init(self, *a, **k)
+        return __init__
+
+    for c, init in saved:
+        c.__init__ = wrap(init)
+    try:
+        yield
+    finally:
+        for c, init in saved:
+            c.__init__ = init
+
+
+@contextlib.contextmanager
+def _swapped_modules(modname: str, port: bool):
+    """Imports inside the test's functions (of this module and the test
+    modules it draws on) find this side's view of a test module, and in
+    the port's run the port's modules."""
+    names = set()
+    todo, seen = [modname], set()
+    while todo:
+        m = todo.pop()
+        if m in seen:
+            continue
+        seen.add(m)
+        top, inner = _imports(m)
+        names |= inner
+        todo += [src for src, _, _ in top if src.startswith("tests")]
+    # every module is imported before any is swapped: a JAX module first
+    # imported while another is swapped would bind the port's objects
+    swaps = {}
+    for name in sorted(names):
+        try:
+            importlib.import_module(name)
+        except ImportError:
+            continue
+        if name.startswith("tests."):
+            swaps[name] = None
+        elif port:
+            swaps[name] = importlib.import_module(_port_modname(name))
+    for name in swaps:
+        if swaps[name] is None:
+            view = pytypes.ModuleType(name)
+            view.__dict__.update(module_view(name, port))
+            swaps[name] = view
+    saved = {}
+    for name, mod in swaps.items():
+        saved[name] = sys.modules[name]
+        sys.modules[name] = mod
+        _set_parent_attr(name, mod)
+    try:
+        yield
+    finally:
+        for name, mod in saved.items():
+            sys.modules[name] = mod
+            _set_parent_attr(name, mod)
+
+
+def _set_parent_attr(name: str, mod) -> None:
+    """``import a.b as c`` reads the package's attribute, not sys.modules"""
+    parent, _, leaf = name.rpartition(".")
+    if parent:
+        setattr(sys.modules[parent], leaf, mod)
+
+
+def run_reference_test(modname: str, test: str, port: bool,
+                       tmp_path=None) -> List[str]:
+    """Run the JAX package's ``modname::test`` on one side (the port's
+    objects when ``port``); its record, sorted (threads may reorder
+    writes to different objects)."""
+    import pytest
+
+    view = module_view(modname, port)
+    fn = view[test]
+    del _LOG[:]
+    mp = pytest.MonkeyPatch()
+    args = {}
+    for name in inspect.signature(fn).parameters:
+        if name == "tmp_path":
+            tmp_path.mkdir(parents=True, exist_ok=True)
+            args[name] = tmp_path
+        elif name == "monkeypatch":
+            args[name] = mp
+        else:
+            raise TypeError(f"{test} wants fixture {name}")
+    del _SCHEDS[:]
+    register_vendors()
+    try:
+        with _fences_recorded(), _swapped_modules(modname, port):
+            fn(**args)
+            for s in _SCHEDS:
+                with contextlib.suppress(Exception):
+                    s.committer.drain(timeout=1.0)
+    finally:
+        for s in _SCHEDS:
+            with contextlib.suppress(Exception):
+                s.stop()
+        mp.undo()
+        reset_vendors()
+    # a lease renewed by a ticker thread is written as often as it ran:
+    # its (holder, generation) pairs are compared as a set
+    leases = {json.dumps(e) for e in _LOG if e[0] == "lease"}
+    rest = [json.dumps(to_port_strings(e), sort_keys=True, default=str)
+            for e in _LOG if e[0] != "lease"]
+    return sorted(rest) + sorted(leases)

@@ -167,9 +167,28 @@ ENV_FILTER_BATCH = "VTPU_FILTER_BATCH"
 ENV_FILTER_BATCH_WINDOW_MS = "VTPU_FILTER_BATCH_WINDOW_MS"
 ENV_FILTER_INTAKE = "VTPU_FILTER_INTAKE"
 # scheduler/__main__.py: the rebalancer's and the migration planner's
-# periods; neither loop is ported yet, so a value above 0 is refused
+# periods (0 = off)
 ENV_REBALANCE_S = "VTPU_REBALANCE_S"
 ENV_MIGRATE_S = "VTPU_MIGRATE_S"
+# scheduler/migrate.py: moves in flight at once
+ENV_MIGRATE_MAX_INFLIGHT = "VTPU_MIGRATE_MAX_INFLIGHT"
+# scheduler/rebalancer.py: the headroom a resized quota keeps above usage,
+# and the URL of a node monitor's /nodeinfo ("{node}" is the node's name)
+ENV_RESIZE_HEADROOM_PCT = "VTPU_RESIZE_HEADROOM_PCT"
+ENV_MONITOR_URL_TEMPLATE = "VTPU_MONITOR_URL_TEMPLATE"
+
+#: the leadership lease's default name (vtpu/contracts.py:73); a
+#: multi-active group's lease is this name with "-g<NN>" appended
+LEASE_NAME_DEFAULT = SCHEDULER_NAME
+# ha/ and scheduler/__main__.py --ha: the lease's name, namespace and
+# expiry, the peers that share the shard groups, this instance's ordinal
+# among them (-1 = derived from its identity) and the identity itself
+ENV_LEASE_NAME = "VTPU_LEASE_NAME"
+ENV_LEASE_NAMESPACE = "VTPU_LEASE_NAMESPACE"
+ENV_LEASE_EXPIRE_S = "VTPU_LEASE_EXPIRE_S"
+ENV_SCHEDULER_PEERS = "VTPU_SCHEDULER_PEERS"
+ENV_SCHEDULER_ORDINAL = "VTPU_SCHEDULER_ORDINAL"
+ENV_POD_NAME = "POD_NAME"
 
 # --------------------------------------------------------------------------
 # Node-monitor knobs (vtpu_torch/monitor; the JAX monitor's names, so one

@@ -19,7 +19,7 @@ from vtpu_torch import native
 
 from . import parse_size
 from .canary import Card
-from .run import CARD_DROP, REPO, run_pods
+from .run import CARD_DROP, REPO, PodFailed, run_pods
 from .tight import tight_main
 
 # the mock card: one H100-named card of this much memory, contexts of
@@ -107,15 +107,19 @@ def main(argv=None) -> int:
         except RuntimeError as e:
             print(f"northstar: {e}", file=sys.stderr)
             return 2
-        if args.tight:
-            result = tight_main(args, args.backend, card, root)
-            return _finish(args, result, card, result["tight_met"])
-        quota = parse_size(args.quota)
-        run = run_pods(backend=args.backend, card=card, pods=args.pods,
-                       seconds=args.seconds, quotas=[quota] * args.pods,
-                       case=args.case, batch=args.batch, cores=cores,
-                       priorities=priorities, canary=True,
-                       oom_channel=args.backend == "cuda", root=root)
+        try:
+            if args.tight:
+                result = tight_main(args, args.backend, card, root)
+                return _finish(args, result, card, result["tight_met"])
+            quota = parse_size(args.quota)
+            run = run_pods(backend=args.backend, card=card, pods=args.pods,
+                           seconds=args.seconds, quotas=[quota] * args.pods,
+                           case=args.case, batch=args.batch, cores=cores,
+                           priorities=priorities, canary=True,
+                           oom_channel=args.backend == "cuda", root=root)
+        except PodFailed as e:
+            print(f"northstar: {e}", file=sys.stderr, flush=True)
+            return 1
         pods = run["pods"]
         result = {
             "backend": args.backend, "case": args.case,

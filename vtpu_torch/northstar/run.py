@@ -32,6 +32,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 EXIT_WAIT_S = 60.0
 
 CARD_DROP = "card_drop_at_exit"
+
+
+class PodFailed(RuntimeError):
+    """A pod exited before it reached its hold barrier: the run stops at
+    once (the other pods would hold their state until the deadline)."""
 SHIM_ONLY = "shim_region (card drop n/a)"
 
 
@@ -114,6 +119,21 @@ def _measure_at_barrier(card: Card, run_root: str, procs, region_paths,
     if canary:
         out["canary_post"] = card.reading()
     return out
+
+
+def _fail_on_early_exit(run_root: str, procs: list, errs: list) -> None:
+    """Raise PodFailed, naming the pod, its exit code and the end of its
+    ``pod<i>.err``, when a pod exited without its ``pod<i>.done``; the
+    caller's cleanup then releases the barrier and stops the others."""
+    for i, p in enumerate(procs):
+        if p.poll() is None or os.path.exists(
+                os.path.join(run_root, done_file(i))):
+            continue
+        errs[i].flush()
+        errs[i].seek(0)
+        tail = errs[i].read()[-4000:]
+        raise PodFailed(f"pod {i} exited with rc {p.returncode} before its "
+                        f"barrier; its pod{i}.err:\n{tail}")
 
 
 def run_pods(*, backend: str, card: Card, pods: int, seconds: float,
@@ -214,6 +234,8 @@ def run_pods(*, backend: str, card: Card, pods: int, seconds: float,
             finally:
                 for v in views.values():
                     v.close()
+            if hold and barrier is None:
+                _fail_on_early_exit(run_root, procs, errs)
             if (hold and barrier is None and all(
                     os.path.exists(os.path.join(run_root, done_file(i)))
                     for i in range(pods))):

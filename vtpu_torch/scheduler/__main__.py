@@ -17,17 +17,26 @@ and with an in-memory apiserver (no cluster)::
 
 Outside a cluster :func:`main` also takes a ``client`` (a
 ``FakeKubeClient``, for one), as the device plugin's and the monitor's
-mains do. The leader-elected pair (``--ha``, ``--lease-*``), the
-rebalancer (``VTPU_REBALANCE_S``) and the migration planner
-(``VTPU_MIGRATE_S``) are not ported yet (ROADMAP item 14): argparse
-rejects the flags, and a period above 0 exits non-zero.
+mains do.
+
+``--ha`` joins the leader-elected pair (docs/ha.md): one lease
+(``--lease-name``, ``--lease-namespace``, ``VTPU_LEASE_EXPIRE_S``) and an
+:class:`~vtpu_torch.ha.HACoordinator` whose promotion rebuilds gang state
+before the role flips; with ``VTPU_SHARD_GROUPS`` above 1 it is a
+multi-active :class:`~vtpu_torch.ha.GroupCoordinator`, one lease per shard
+group (``VTPU_SCHEDULER_PEERS``, ``VTPU_SCHEDULER_ORDINAL``). A period above
+0 in ``VTPU_REBALANCE_S`` starts the elastic-quota rebalancer, in
+``VTPU_MIGRATE_S`` the live-migration planner; both read each node
+monitor's ``/nodeinfo`` (``VTPU_MONITOR_URL_TEMPLATE``) and gate
+themselves on leadership each round.
 """
 
 from __future__ import annotations
 
 import argparse
+import logging
+import socket
 import ssl
-import sys
 import threading
 from typing import List, Optional
 
@@ -36,12 +45,18 @@ from prometheus_client import REGISTRY, start_http_server
 
 from .. import api, device, trace
 from ..device.config import GLOBAL
+from ..ha import (ClusterLease, GroupCoordinator, HACoordinator,
+                  ordinal_from_identity)
 from ..util.client import FakeKubeClient, KubeClient, get_client
-from ..util.env import env_float
+from ..util.env import env_float, env_int, env_str
 from ..util.logsetup import setup as setup_logging
 from .core import Scheduler
 from .metrics import SchedulerCollector
+from .migrate import MigrationPlanner
+from .rebalancer import HTTPNodeInfoSource, Rebalancer
 from .routes import build_app
+
+log = logging.getLogger(__name__)
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -60,18 +75,97 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--metrics-bind", default="0.0.0.0:9395")
     p.add_argument("--fake-kube", action="store_true",
                    help="in-memory apiserver (dev/demo; no cluster)")
+    p.add_argument("--ha", action="store_true",
+                   help="join the leader-elected scheduler pair "
+                        "(docs/ha.md); standby stays warm and serves "
+                        "503 on /filter //bind until promoted")
+    p.add_argument("--lease-name",
+                   default=env_str(api.ENV_LEASE_NAME,
+                                   api.LEASE_NAME_DEFAULT))
+    p.add_argument("--lease-namespace",
+                   default=env_str(api.ENV_LEASE_NAMESPACE, "kube-system"))
     p.add_argument("-v", "--verbose", action="count", default=0)
     return p.parse_args(argv)
 
 
-def refuse_unported_loops() -> None:
-    """The rebalancer and the migration planner are ROADMAP item 14: a
-    deployment that turns either on must not run without it unnoticed."""
-    for knob in (api.ENV_REBALANCE_S, api.ENV_MIGRATE_S):
-        if env_float(knob, 0.0, minimum=0.0) > 0:
-            sys.exit(f"{knob} > 0 asks for a loop vtpu_torch.scheduler "
-                     f"does not have yet (the rebalancer and the "
-                     f"migration planner are ROADMAP item 14); unset it")
+def start_ha(sched: Scheduler, client: KubeClient,
+             args: argparse.Namespace):
+    """Attach and start the coordinator ``--ha`` asks for (cmd/
+    scheduler.py:97-160): a GroupCoordinator, one lease per shard group,
+    when the decide plane has more than one group, else an HACoordinator
+    on one lease. Absorbing a group (or a promotion) replays the durable
+    records before the instance serves a decision for it."""
+    identity = env_str(api.ENV_POD_NAME) or socket.gethostname()
+    lease_s = env_float(api.ENV_LEASE_EXPIRE_S, 15.0, minimum=1.0)
+    n_groups = sched.shards.n_groups
+    if n_groups > 1:
+        peers = env_int(api.ENV_SCHEDULER_PEERS, 2, minimum=1)
+        ordinal = env_int(api.ENV_SCHEDULER_ORDINAL, -1)
+        if ordinal < 0:
+            ordinal = ordinal_from_identity(identity, peers)
+
+        def on_acquire(g: int, gen: int) -> None:
+            restored = sched.recover(groups=frozenset({g}))
+            log.info("acquired shard group %d (generation %d); "
+                     "replayed %d durable record(s) for it", g, gen,
+                     restored)
+
+        def on_acquire_batch(gens) -> None:
+            # one rebuild (one cluster pod LIST) for every group a poll
+            # pass absorbed
+            restored = sched.recover(groups=frozenset(gens))
+            log.info("acquired shard groups %s (generations %s); "
+                     "replayed %d durable record(s) for them",
+                     sorted(gens), [gens[g] for g in sorted(gens)],
+                     restored)
+
+        coord = GroupCoordinator(
+            client, identity=identity, n_groups=n_groups,
+            ordinal=ordinal, peers=peers,
+            lease_name_base=args.lease_name,
+            namespace=args.lease_namespace, lease_s=lease_s,
+            on_acquire=on_acquire, on_acquire_batch=on_acquire_batch)
+        log.info("multi-active: %d shard groups, ordinal %d of %d "
+                 "peer(s)", n_groups, ordinal, peers)
+    else:
+        lease = ClusterLease(client, identity=identity,
+                             name=args.lease_name,
+                             namespace=args.lease_namespace,
+                             lease_s=lease_s)
+
+        def on_promote(gen: int) -> None:
+            restored = sched.recover()
+            log.info("promoted (generation %d); rebuilt %d gang member "
+                     "placement(s)", gen, restored)
+
+        coord = HACoordinator(lease, on_promote=on_promote)
+    sched.ha = coord
+    coord.start()
+    return coord
+
+
+def start_loops(sched: Scheduler) -> list:
+    """The leader-gated control loops a period above 0 turns on
+    (cmd/scheduler.py:165-190): the elastic-quota rebalancer and the
+    live-migration planner, each over the node monitors' /nodeinfo.
+    Standbys run them too; each round gates itself on leadership."""
+    loops = []
+    rebalance_s = env_float(api.ENV_REBALANCE_S, 0.0, minimum=0.0)
+    if rebalance_s > 0:
+        source = HTTPNodeInfoSource(
+            nodes=lambda: list(sched.nodes.list_nodes().keys()))
+        loops.append(Rebalancer(sched, source, period_s=rebalance_s))
+        log.info("rebalancer on (every %.0fs)", rebalance_s)
+    migrate_s = env_float(api.ENV_MIGRATE_S, 0.0, minimum=0.0)
+    if migrate_s > 0:
+        msource = HTTPNodeInfoSource(
+            nodes=lambda: list(sched.nodes.list_nodes().keys()))
+        loops.append(MigrationPlanner(sched, msource, period_s=migrate_s))
+        log.info("migration planner on (every %.0fs, deadline %.0fs)",
+                 migrate_s, sched.migrate_deadline_s)
+    for loop in loops:
+        loop.start()
+    return loops
 
 
 def main(argv: Optional[List[str]] = None,
@@ -79,7 +173,6 @@ def main(argv: Optional[List[str]] = None,
     """Serve until interrupted. ``client`` replaces the in-cluster
     apiserver client (and ``--fake-kube``'s in-memory one)."""
     args = parse_args(argv)
-    refuse_unported_loops()
     setup_logging(args.verbose)
     trace.tracer.configure(process="scheduler")
     GLOBAL.scheduler_name = args.scheduler_name
@@ -90,9 +183,14 @@ def main(argv: Optional[List[str]] = None,
     if client is None:
         client = FakeKubeClient() if args.fake_kube else get_client()
     sched = Scheduler(client)
-    sched.recover()
+    if args.ha:
+        start_ha(sched, client, args)
+    else:
+        # single-scheduler deployments recover at startup the same way
+        sched.recover()
     threading.Thread(target=sched.registration_loop, daemon=True).start()
     threading.Thread(target=sched.pod_watch_loop, daemon=True).start()
+    loops = start_loops(sched)
 
     REGISTRY.register(SchedulerCollector(sched))
     mhost, mport = args.metrics_bind.rsplit(":", 1)
@@ -103,14 +201,27 @@ def main(argv: Optional[List[str]] = None,
     if args.cert_file and args.key_file:
         ssl_ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
         ssl_ctx.load_cert_chain(args.cert_file, args.key_file)
+    app = build_app(sched)
+    if sched.ha is not None:
+        # a graceful stop releases the lease, so the peer takes over at
+        # once instead of after the expiry; stop() joins a thread and
+        # makes lease round-trips, so it runs off the event loop
+        async def _handover(app_):
+            import asyncio
+
+            await asyncio.get_running_loop().run_in_executor(
+                None, sched.ha.stop)
+
+        app.on_shutdown.append(_handover)
     try:
         # signal handlers can only be set from the main thread; a caller
         # that serves from another thread stops the process instead
-        web.run_app(build_app(sched), host=host, port=int(port),
-                    ssl_context=ssl_ctx,
+        web.run_app(app, host=host, port=int(port), ssl_context=ssl_ctx,
                     handle_signals=(threading.current_thread()
                                     is threading.main_thread()))
     finally:
+        for loop in loops:
+            loop.stop()
         sched.stop()
 
 
