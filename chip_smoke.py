@@ -145,7 +145,9 @@ built:
 10. phase (i), the node agent (vtpu_torch/plugin): NVML enumerates the
    cards in this process (its time printed), each card's UUID, name and
    MiB equal to torch's and ``nvidia-smi``'s and its ``/dev/nvidia<minor>``,
-   ``/dev/nvidiactl`` and ``/dev/nvidia-uvm`` present. The device plugin
+   ``/dev/nvidiactl`` and ``/dev/nvidia-uvm`` present; each card's NUMA
+   node and the source that answered (NVML's PCI bus id and sysfs, else
+   ``nvidia-smi topo -m``, else 0) are printed. The device plugin
    then runs in a child through its entry point
    (``vtpu_torch.plugin.__main__.main``) with an in-memory apiserver
    (``FakeKubeClient``) and temp dirs for kubelet's socket dir and the shim
@@ -160,8 +162,13 @@ built:
    the node list (the winner is the card's node) and ``/bind``; the
    assignment names the card's UUID at ``gpumem`` 12288 MiB and
    ``gpucores`` 50 at bind-phase ``allocating``, each call's latency
-   printed. Then kubelet: Allocate over the plugin's socket (its latency
-   printed); bind-phase turns ``success``. The plugin process imported no
+   printed. A license minted with a test secret for this host lies in the
+   shim host dir. Then kubelet: Allocate over the plugin's socket (its
+   latency printed); bind-phase turns ``success``; the response mounts the
+   license and the ``vgpu-validator`` the plugin installed, which the pod
+   child (the secret in its env, as from a Secret) runs from the mount's
+   host path: exit 0 on the license, 1 on a copy with one signed line
+   changed. The plugin process imported no
    torch and took no device memory or context. A case 1.1
    ``--sm-child`` started with only the response's env and mounts
    (vtpu_torch/plugin/runtime.py) sees a
@@ -216,7 +223,33 @@ built:
    1e-6, abs 1e-7); the card's used memory is back within 256 MiB; each
    protocol step's time, the planner's blackout and the step's ms are
    printed;
-11b. phase (n), the scheduler at cluster scale: ``python -m
+11b. phase (p), serving (vtpu_torch.models.serving,
+   vtpu_torch.gateway), alone on the card, its three children (under
+   ``libvgpu.so``, each its own region file) and the parent's reference
+   weights started beside phase (o), drawing their weights on the host
+   before any touches the card: the model at
+   dim 8192, hidden 28672, classes 8192, f32 (Llama-2-70B's hidden and
+   MLP widths). (p1) a gang of two pods with the mesh env the plugin's
+   ``_pod_mesh_env`` writes for a 2x1x1 slice gang (set here, as the north
+   star sets Allocate's env: a two-host gang on one card needs host
+   coordinates NVML does not give), 3 GiB each: each holds its 14,336-wide
+   shard (939,581,440 B), serves the same 8 seeded batches of 64 rows,
+   and its region's charge is at least its shard and under its quota; the
+   partials summed equal the unsharded forward on the card (f32, TF32
+   off) within relative L2 1e-5, and at the JAX defaults (64/256/16)
+   within max abs 1e-4; the regions are clean after the exits. (p2) one
+   pod under 8 GiB holds two solo replicas (1,879,162,880 B each) behind
+   ``ReplicaSet`` and ``Router`` with ``ReplicaBatcher``'s defaults (batch
+   1-64, queue 256, SLO 50 ms); after a first pass over every batch
+   bucket, 3 tenants' open-loop arrivals at 2,000 requests/s for 5 s (the
+   loop submits and steps on ``time.perf_counter``): every request done
+   exactly once, none shed, each result row within relative L2 1e-4 of
+   its replica's forward of that row alone, recompiles equal to the
+   buckets reached and none past the first pass, both replicas served,
+   the region's charge at least both replicas and under the quota. The
+   request latency p50/p99, requests/s, mean batch and step ms are
+   printed with the card's name and power limit;
+11c. phase (n), the scheduler at cluster scale: ``python -m
    vtpu_torch.scheduler.loadtest`` in a child that imports no torch runs
    the port's scheduler daemon on an in-memory apiserver of 1,024 nodes x
    8 of this card (its NVML type string and MiB, 10 replicas a card, NUMA
@@ -267,6 +300,7 @@ import math
 import os
 import select
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -1615,6 +1649,27 @@ def sm_child() -> None:
         rest_ms = (time.perf_counter() - t0) * 1e3 / max(1, cmd["steps"] - 1)
         return dict(op_fill(cmd), first_step_ms=first_ms, step_ms=rest_ms)
 
+    def op_validate(cmd):
+        """the entitlement validator at its mount's host path, on the
+        license mounted beside it and on a copy with one signed line
+        changed: (exit codes, what each said)"""
+        with open(cmd["license"]) as f:
+            text = f.read()
+        tampered = os.path.join(tempfile.mkdtemp(prefix="vgpu-lic-"),
+                                "license")
+        with open(tampered, "w") as f:
+            f.write(text.replace("max_chips=1", "max_chips=9"))
+        out = {}
+        for key, path in (("valid", cmd["license"]),
+                          ("tampered", tampered)):
+            proc = subprocess.run([cmd["validator"], path],
+                                  capture_output=True, text=True,
+                                  timeout=60)
+            out[key] = [proc.returncode,
+                        (proc.stdout + proc.stderr).strip()]
+        shutil.rmtree(os.path.dirname(tampered), ignore_errors=True)
+        return out
+
     def op_release(cmd):
         fills.clear()
         torch.cuda.empty_cache()
@@ -1656,7 +1711,7 @@ def sm_child() -> None:
            "quota": op_quota, "mem": op_mem, "keys": op_keys,
            "device_ms": op_device_ms, "zoo": op_zoo, "fill": op_fill,
            "release": op_release, "alloc_when_locked": op_alloc_when_locked,
-           "run_fill": op_run_fill}
+           "run_fill": op_run_fill, "validate": op_validate}
     for line in sys.stdin:
         cmd = json.loads(line)
         try:
@@ -1974,6 +2029,8 @@ NODE_NAME = "smoke-gpu-node"
 SPLIT = 10                   # device_split_count, the plugin's default
 NODE_QUOTA_MB = 12288        # (i): the pod's gpumem ...
 NODE_SM_LIMIT = 50           # ... and gpucores
+# the HMAC secret the (i) license is minted with, and the pod's env holds
+LICENSE_SECRET = "chip-smoke-test-secret"
 # a CUDA context holds ~0.6 GB of the card (PERF.md); the plugin process
 # must not move the card's used memory by a fraction of that
 CONTEXT_MARGIN_MB = 256
@@ -2170,6 +2227,7 @@ def node_agent_phase(name: str, solo_img_s: float,
 
     from vtpu_torch.plugin import deviceplugin_pb2 as pb
     from vtpu_torch.plugin import dp_grpc, runtime
+    from vtpu_torch.plugin import license as vlicense
     from vtpu_torch.plugin.nvml import NvmlLib
     from vtpu_torch.plugin.rm import replica_id
     from vtpu_torch.util import codec
@@ -2180,6 +2238,7 @@ def node_agent_phase(name: str, solo_img_s: float,
     t1 = time.perf_counter()
     chips = nvml.enumerate()
     t2 = time.perf_counter()
+    numa_sources = dict(nvml.numa_sources)
     nvml.close()
     init_ms, enum_ms = (t1 - t0) * 1e3, (t2 - t1) * 1e3
     check(len(chips) == torch.cuda.device_count() >= 1,
@@ -2207,6 +2266,10 @@ def node_agent_phase(name: str, solo_img_s: float,
     print(f"(i) NVML in this process (CUDA initialised): {len(chips)} "
           f"card(s) in {enum_ms:.3f} ms (nvmlInit_v2 and binding "
           f"{init_ms:.3f} ms): {cards}; on {name}", flush=True)
+    numa = "; ".join(f"card {i}: NUMA {chips[i].numa} from "
+                     f"{numa_sources.get(i)}" for i in range(len(chips)))
+    print(f"(i) NUMA source (NVML's PCI bus id and sysfs, else nvidia-smi "
+          f"topo -m, else 0): {numa}; on {name}", flush=True)
 
     tmp = tempfile.mkdtemp(prefix="vgpu-smoke-node-")
     registered = []
@@ -2264,6 +2327,15 @@ def node_agent_phase(name: str, solo_img_s: float,
         # only the API server's admission call and kube-scheduler
         extender = extender_phase(name, plugin, sched_port, chips[0])
 
+        # a license on the node, minted with a test secret: Allocate then
+        # mounts it and the vgpu-validator the plugin installed
+        license_file = os.path.join(plugin.shim_dir, "license", "license")
+        os.makedirs(os.path.dirname(license_file))
+        with open(license_file, "w") as f:
+            f.write(vlicense.mint(LICENSE_SECRET.encode(),
+                                  int(time.time()) + 3600,
+                                  nodes=socket.gethostname(), max_chips=1))
+
         # Allocate, as kubelet calls it
         with grpc.insecure_channel(sock) as ch:
             stub = dp_grpc.DevicePluginStub(ch)
@@ -2317,11 +2389,29 @@ def node_agent_phase(name: str, solo_img_s: float,
             ("CUDA_", "NVIDIA_", "LD_PRELOAD", "PYTORCH_CUDA_ALLOC_CONF"))}
         env["PYTHONPATH"] = ROOT
         env.update(runtime.process_env(ctr))
+        # the license secret, as a pod spec's env from a Secret
+        env[api.ENV_LICENSE_SECRET] = LICENSE_SECRET
         cache = env[api.ENV_SHARED_CACHE]
         check(env["LD_PRELOAD"] == os.path.join(plugin.shim_dir,
                                                 "libvgpu.so"),
               f"LD_PRELOAD {env.get('LD_PRELOAD')}")
         workload = SmChild("(i) Allocate's pod", given=(env, cache))
+        mounted = {m.container_path: m.host_path for m in ctr.mounts}
+        check(mounted.get(api.CONTAINER_LICENSE_PATH) == license_file
+              and api.CONTAINER_VALIDATOR_PATH in mounted,
+              f"(i) license and validator mounts: {sorted(mounted)}")
+        validated = workload.ask(
+            "validate", license=runtime.host_path(
+                api.CONTAINER_LICENSE_PATH, ctr.mounts),
+            validator=runtime.host_path(api.CONTAINER_VALIDATOR_PATH,
+                                        ctr.mounts))
+        print(f"(i) vgpu-validator in the pod, from its mount: the license "
+              f"exit {validated['valid'][0]} "
+              f"(\"{validated['valid'][1]}\"), a tampered copy exit "
+              f"{validated['tampered'][0]} "
+              f"(\"{validated['tampered'][1]}\"); on {name}", flush=True)
+        check(validated["valid"][0] == 0 and validated["tampered"][0] == 1,
+              f"(i) validator {validated}")
         q = workload.ask("quota")
         run = workload.ask("run", seconds=SM_RUN_S)
         share = run["img_s"] / solo_img_s
@@ -2370,6 +2460,9 @@ def node_agent_phase(name: str, solo_img_s: float,
             "plugin_nvml_enumerate_ms": cold["enumerate_ms"],
             "phase_s": took,
             "allocate_ms": alloc_ms, "scheduler": extender,
+            "numa_sources": {str(i): v for i, v in numa_sources.items()},
+            "validator_exit": [validated["valid"][0],
+                               validated["tampered"][0]],
             "quota_bytes": q["total"], "img_s": run["img_s"],
             "unthrottled_img_s": solo_img_s, "share": share,
             "plugin_used_mib_delta": used1 - used0,
@@ -3010,6 +3103,388 @@ def livemove_phase(name: str) -> dict:
             "took_s": time.perf_counter() - t0}
 
 
+# ----------------------------------------------------------- (p) serving.
+# One tenant's model split across a gang of two pods, each under its own
+# quota on the card, then a fleet of two solo replicas behind the gateway.
+# The configuration: dim 8192, hidden 28672, classes 8192, f32: the hidden
+# and MLP widths of Llama-2-70B's published config (hidden_size 8192,
+# intermediate_size 28672), as one tanh MLP layer and a classifier.
+SERVE_DIM, SERVE_HIDDEN, SERVE_CLASSES, SERVE_SEED = 8192, 28672, 8192, 0
+# a member of two holds W1[:, 14336-wide], b1 and W2's 14336 rows; a solo
+# replica the whole model (f32)
+SERVE_MEMBER_BYTES = 939_581_440
+SERVE_SOLO_BYTES = 1_879_162_880
+SERVE_MEMBER_QUOTA = 3 * GiB
+SERVE_FLEET_QUOTA = 8 * GiB
+SERVE_BATCHES, SERVE_ROWS, SERVE_BATCH_SEED = 8, 64, 11
+# the gang against the unsharded forward on the card (f32, TF32 off), and
+# at the JAX defaults as tests/test_e2e.py holds them
+SERVE_REL_L2 = 1e-5
+SERVE_SMALL_MAX_ABS = 1e-4
+# (p2): open-loop arrivals from 3 tenants at 2,000 requests/s for 5 s;
+# each result row against its replica's forward of that row alone
+FLEET_RATE, FLEET_SECONDS, FLEET_TENANTS = 2000.0, 5.0, ("a", "b", "c")
+FLEET_ROW_REL_L2 = 1e-4
+
+
+def serve_batches() -> list:
+    """(p1)'s batches, drawn on the host from one seed: every member and
+    the parent hold the same rows"""
+    g = torch.Generator().manual_seed(SERVE_BATCH_SEED)
+    return [torch.randn(SERVE_ROWS, SERVE_DIM, generator=g)
+            for _ in range(SERVE_BATCHES)]
+
+
+def serve_small_batch():
+    """the JAX end to end's gang input (tests/test_e2e.py): 8 rows of the
+    default model's 64 features, RandomState(7)"""
+    import numpy as np
+    return np.random.RandomState(7).randn(8, 64).astype("float32")
+
+
+def serve_child(role: str) -> None:
+    """Runs in a --serve-child process (``role`` member or fleet) under
+    libvgpu.so: draws the model's weights on the host (a member keeps its
+    shard of them), says so, and touches the card only at the parent's
+    command; one JSON reply per JSON command."""
+    import numpy as np
+
+    from vtpu_torch.gateway import (Replica, ReplicaBatcher, ReplicaSet,
+                                    Router)
+    from vtpu_torch.models import serving
+    from vtpu_torch.scheduler.core import ShedError
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    model = serving.ShardedServingModel(dim=SERVE_DIM, hidden=SERVE_HIDDEN,
+                                        classes=SERVE_CLASSES,
+                                        seed=SERVE_SEED)
+    full = model._full_params()
+    host = model.shard(full) if role == "member" else full
+    del full
+    if role == "member":
+        batches = serve_batches()
+    else:
+        rng = np.random.default_rng(SERVE_BATCH_SEED)
+        n = int(FLEET_RATE * FLEET_SECONDS)
+        rows = rng.standard_normal((n, SERVE_DIM), dtype=np.float32)
+    print(json.dumps({"staged": True,
+                      "host_s": time.perf_counter() - t0}), flush=True)
+
+    def op_member(cmd):
+        enf = install()
+        t = time.perf_counter()
+        model.setup(host_shard=host)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t
+        outs, step_ms = [], []
+        for x in batches:
+            outs.append(model.infer(x))
+            step_ms.append(model.stats.last_step_seconds * 1e3)
+        np.save(cmd["out"], torch.cat(outs).cpu().numpy())
+        small, small_stats = serving.run_member(dict(os.environ),
+                                                serve_small_batch(),
+                                                hidden=256)
+        np.save(cmd["out_small"], small.cpu().numpy())
+        stats = model.stats
+        return {"member": stats.member, "members": stats.members,
+                "hidden_shard": stats.hidden_shard,
+                "param_bytes": stats.param_bytes,
+                "local_devices": stats.local_devices,
+                "small_members": small_stats.members,
+                "setup_s": setup_s, "step_ms": step_ms, "used": enf.used(),
+                "footprint": enf.footprint()}
+
+    def op_fleet(cmd):
+        enf = install()
+        t = time.perf_counter()
+        rs = ReplicaSet("p2")
+        for i in range(2):
+            m = serving.ShardedServingModel(
+                dim=SERVE_DIM, hidden=SERVE_HIDDEN, classes=SERVE_CLASSES,
+                seed=SERVE_SEED)
+            m.setup(params=host)
+            # the process's one-time costs (cuBLAS's handle, each shape's
+            # kernels) paid here, outside both batchers: the replica
+            # stepped first would otherwise carry them in its latency
+            # EWMA, and the router, which scores by that EWMA, would
+            # never pick it again
+            for bucket in (1, 2, 4, 8, 16, 32, 64):
+                m.infer(torch.from_numpy(rows[:bucket]))
+            rs.add(Replica(name=f"r{i}", batcher=ReplicaBatcher(m)))
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t
+        replicas = rs.list()
+        # the first pass: every bucket of each replica once
+        buckets = {r.name: set() for r in replicas}
+        for r in replicas:
+            b, bucket = r.batcher, r.batcher.batch_min
+            while True:
+                saved, b.batch = b.batch, bucket
+                for _ in range(bucket):
+                    b.submit("warmup", rows[0])
+                buckets[r.name].add(b.step().bucket)
+                b.batch = saved
+                if bucket >= b.batch_max:
+                    break
+                bucket *= 2
+        first = {r.name: (r.batcher.recompiles, r.batcher.steps,
+                          r.batcher.model.stats.step_seconds_total)
+                 for r in replicas}
+        router = Router(rs)
+        n = len(rows)
+        served_by, done, shed = {}, [], 0
+        t0 = time.perf_counter()
+        i = 0
+        while len(done) + shed < n:
+            now = time.perf_counter()
+            while i < n and t0 + i / FLEET_RATE <= now:
+                try:
+                    router.submit(FLEET_TENANTS[i % 3], rows[i],
+                                  now=t0 + i / FLEET_RATE)
+                except ShedError:
+                    shed += 1
+                i += 1
+            for r in replicas:
+                res = r.batcher.step()
+                if res is not None:
+                    buckets[r.name].add(res.bucket)
+                    for req in res.requests:
+                        served_by[id(req)] = r.name
+                    done.extend(res.requests)
+        wall = max(req.completed_at for req in done) - t0
+        lat = sorted(req.latency for req in done)
+        steps = {r.name: r.batcher.steps - first[r.name][1]
+                 for r in replicas}
+        step_ms = {r.name: (r.batcher.model.stats.step_seconds_total
+                            - first[r.name][2]) / max(1, steps[r.name])
+                   * 1e3 for r in replicas}
+        # each result row against its replica's forward of that row alone
+        models = {r.name: r.batcher.model for r in replicas}
+        worst = 0.0
+        t = time.perf_counter()
+        for req in done:
+            solo = models[served_by[id(req)]].infer(
+                torch.from_numpy(req.payload[None]))[0].double().cpu()
+            got = torch.from_numpy(req.result).double()
+            worst = max(worst, float((got - solo).norm() / solo.norm()))
+        check_s = time.perf_counter() - t
+        return {"requests": n, "completed": len(done),
+                "unique": len({id(req) for req in done}),
+                "all_done": all(req.done for req in done), "shed": shed,
+                "p50_ms": lat[len(lat) // 2] * 1e3,
+                "p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))]
+                * 1e3, "rps": len(done) / wall, "wall_s": wall,
+                "served": {name: sum(1 for q in done
+                                     if served_by[id(q)] == name)
+                           for name in models},
+                "steps": steps, "mean_batch": len(done) / sum(
+                    steps.values()), "step_ms": step_ms,
+                "recompiles": {r.name: r.batcher.recompiles
+                               for r in replicas},
+                "recompiles_first_pass": {k: v[0]
+                                          for k, v in first.items()},
+                "buckets": {k: sorted(v) for k, v in buckets.items()},
+                "row_rel_l2_max": worst, "check_s": check_s,
+                "setup_s": setup_s, "param_bytes": [
+                    m.stats.param_bytes for m in models.values()],
+                "used": enf.used(), "footprint": enf.footprint()}
+
+    op = {"member": op_member, "fleet": op_fleet}[role]
+    for line in sys.stdin:
+        try:
+            reply = op(json.loads(line))
+        except Exception as e:  # reported to the parent, which fails
+            reply = {"error": f"{type(e).__name__}: {e}"}
+        print(json.dumps(reply), flush=True)
+
+
+class ServeChild(SmChild):
+    """A --serve-child process under libvgpu.so with its own region file
+    and ``quota``: it draws its weights on the host at once and reaches the
+    card only at its command (:meth:`ready` reads its "staged" line)."""
+
+    def __init__(self, label: str, role: str, quota: int, extra_env=None):
+        self.label = label
+        self.context_only = False
+        self.tmp, self.cache, env = child_env("", quota)
+        env.update(extra_env or {})
+        self.errf = open(os.path.join(self.tmp, "child.err"), "w+")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--serve-child",
+             role], env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=self.errf, text=True)
+        _HELD.append(self)
+
+    def charged(self) -> int:
+        """the bytes the child's region holds now (its footprint charge
+        and every allocation)"""
+        with self.view() as view:
+            return view.used(0)
+
+
+def serve_children() -> dict:
+    """Phase (p)'s three children and the parent's reference weights,
+    started ahead, beside phase (o): each child draws its weights on the
+    host and waits; none touches the card before its turn."""
+    from vtpu_torch.models import serving
+
+    mesh = {api.ENV_MESH_SHAPE: "2,1,1", api.ENV_MESH_AXES: "x,y,z"}
+    model = serving.ShardedServingModel(
+        mesh=serving.MeshSpec(), dim=SERVE_DIM, hidden=SERVE_HIDDEN,
+        classes=SERVE_CLASSES, seed=SERVE_SEED)
+    return {"members": [ServeChild(
+                f"(p1) member {m}", "member", SERVE_MEMBER_QUOTA,
+                dict(mesh, **{api.ENV_MESH_COORDS: f"{m}-0-0"}))
+                for m in range(2)],
+            "fleet": ServeChild("(p2) fleet", "fleet", SERVE_FLEET_QUOTA),
+            "reference": futures.ThreadPoolExecutor(1).submit(
+                model._full_params)}
+
+
+def serving_phase(name: str, children: dict) -> list:
+    """Phase (p), its children started ahead (:func:`serve_children`):
+    (p1) a gang of two pods, each under libvgpu.so with its
+    own region and a 3 GiB quota, serves one model split the Megatron way
+    (the mesh env the plugin's ``_pod_mesh_env`` writes for a 2x1x1 slice
+    gang, set by this script as the north star sets Allocate's: a two-host
+    gang on one card needs host coordinates NVML does not give). Each
+    member serves the same 8 batches of 64 rows; their partials summed
+    equal the unsharded forward on the card (f32, TF32 off) within
+    relative L2 1e-5, and at the JAX defaults (64/256/16) within max abs
+    1e-4; each member holds exactly its shard (939,581,440 B) and its
+    region's charge is at least that and under its quota; the regions are
+    clean after the members exit. (p2) one pod under an 8 GiB quota holds
+    two solo replicas (1,879,162,880 B each) behind ReplicaSet and Router
+    with ReplicaBatcher's defaults (batch 1-64, queue 256, SLO 50 ms): 3
+    tenants' open-loop arrivals at 2,000 requests/s for 5 s, each request
+    done exactly once and none shed, each result row within relative L2
+    1e-4 of its replica's forward of that row alone, recompiles equal to
+    the distinct buckets reached and none after the first pass, both
+    replicas served, the region's charge at least both replicas and under
+    the quota. The request latency p50/p99, requests/s, mean batch and
+    step ms are printed, not gated."""
+    import numpy as np
+
+    from vtpu_torch.models import serving
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="vgpu-smoke-serve-")
+    members, fleet = children["members"], children["fleet"]
+    try:
+        ref_params = children["reference"].result()
+        staged = [c.ready()["host_s"] for c in members]
+        for m, c in enumerate(members):
+            c.send("serve", out=os.path.join(tmp, f"p{m}.npy"),
+                   out_small=os.path.join(tmp, f"s{m}.npy"))
+        got = [c.read() for c in members]
+        charged = [c.charged() for c in members]
+        for m, c in enumerate(members):
+            c.close()   # checks the region is clean after the exit
+        with NoTF32():
+            x = torch.cat(serve_batches())
+            ref = serving.reference_logits(
+                x, SERVE_DIM, SERVE_HIDDEN, SERVE_CLASSES,
+                params=ref_params)
+            combined = serving.combine_partials([
+                torch.from_numpy(np.load(os.path.join(tmp, f"p{m}.npy")))
+                for m in range(2)]).cuda()
+            err = rel_l2(combined, ref)
+            small = serving.combine_partials([
+                torch.from_numpy(np.load(os.path.join(tmp, f"s{m}.npy")))
+                for m in range(2)]).cuda()
+            small_err = float((small - serving.reference_logits(
+                serve_small_batch())).abs().max())
+        del ref_params, ref, combined
+        torch.cuda.empty_cache()
+        p1_s = time.perf_counter() - t0
+        step_ms = [sorted(g["step_ms"])[len(g["step_ms"]) // 2]
+                   for g in got]
+        print(f"(p1) gang of 2 at dim {SERVE_DIM}, hidden {SERVE_HIDDEN}, "
+              f"classes {SERVE_CLASSES}, f32: members "
+              f"{[g['member'] for g in got]} of "
+              f"{[g['members'] for g in got]}, hidden shard "
+              f"{[g['hidden_shard'] for g in got]}, param bytes "
+              f"{[g['param_bytes'] for g in got]}, region charge "
+              f"{charged} B (quota {SERVE_MEMBER_QUOTA} B, footprint "
+              f"{[g['footprint']['bytes'] for g in got]} B); "
+              f"{SERVE_BATCHES} batches of {SERVE_ROWS}: step ms (median) "
+              f"{[round(v, 3) for v in step_ms]}, combined vs the "
+              f"unsharded forward rel L2 {err:.3g} (bound "
+              f"{SERVE_REL_L2:g}); at 64/256/16 max abs {small_err:.3g} "
+              f"(bound {SERVE_SMALL_MAX_ABS:g}); host weights "
+              f"{[round(v, 2) for v in staged]} s, setup "
+              f"{[round(g['setup_s'], 3) for g in got]} s; {p1_s:.1f} s; "
+              f"on {name}", flush=True)
+        for g, c in zip(got, charged):
+            check(g["members"] == 2 and g["small_members"] == 2
+                  and g["hidden_shard"] == SERVE_HIDDEN // 2
+                  and g["param_bytes"] == SERVE_MEMBER_BYTES,
+                  f"(p1) member stats {g}")
+            check(SERVE_MEMBER_BYTES <= c < SERVE_MEMBER_QUOTA,
+                  f"(p1) region charge {c} B")
+        check(sorted(g["member"] for g in got) == [0, 1],
+              "(p1) members")
+        check(err <= SERVE_REL_L2, f"(p1) combined rel L2 {err}")
+        check(small_err < SERVE_SMALL_MAX_ABS,
+              f"(p1) 64/256/16 max abs {small_err}")
+
+        # (p2) the fleet
+        t1 = time.perf_counter()
+        fleet.ready()
+        f = fleet.ask("serve")
+        charge = fleet.charged()
+        fleet.close()
+        p2_s = time.perf_counter() - t1
+        smi_line = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip()
+        print(f"(p2) fleet of 2 solo replicas ({f['param_bytes']} B each) "
+              f"behind the router, 3 tenants at {FLEET_RATE:.0f} "
+              f"requests/s for {FLEET_SECONDS:.0f} s: {f['completed']} "
+              f"done of {f['requests']}, {f['shed']} shed; latency p50 "
+              f"{f['p50_ms']:.3f} ms, p99 {f['p99_ms']:.3f} ms; "
+              f"{f['rps']:.1f} requests/s; mean batch "
+              f"{f['mean_batch']:.3f}; step ms {f['step_ms']}; served "
+              f"{f['served']}; recompiles {f['recompiles']} (first pass "
+              f"{f['recompiles_first_pass']}), buckets {f['buckets']}; "
+              f"row rel L2 max {f['row_rel_l2_max']:.3g} (bound "
+              f"{FLEET_ROW_REL_L2:g}, {f['check_s']:.1f} s); region charge "
+              f"{charge} B (quota {SERVE_FLEET_QUOTA} B); {p2_s:.1f} s; "
+              f"{smi_line}", flush=True)
+        check(f["completed"] == f["unique"] == f["requests"]
+              and f["all_done"], f"(p2) requests done {f['completed']}, "
+              f"unique {f['unique']}, of {f['requests']}")
+        check(f["shed"] == 0, f"(p2) {f['shed']} shed")
+        check(f["row_rel_l2_max"] <= FLEET_ROW_REL_L2,
+              f"(p2) row rel L2 {f['row_rel_l2_max']}")
+        check(all(f["recompiles"][k] == len(f["buckets"][k])
+                  == f["recompiles_first_pass"][k] for k in f["buckets"]),
+              f"(p2) recompiles {f['recompiles']}, first pass "
+              f"{f['recompiles_first_pass']}, buckets {f['buckets']}")
+        check(all(v > 0 for v in f["served"].values()),
+              f"(p2) served {f['served']}")
+        check(f["param_bytes"] == [SERVE_SOLO_BYTES] * 2,
+              f"(p2) param bytes {f['param_bytes']}")
+        check(2 * SERVE_SOLO_BYTES <= charge < SERVE_FLEET_QUOTA,
+              f"(p2) region charge {charge} B")
+    finally:
+        for c in members + [fleet]:
+            if c.proc.poll() is None:
+                c.proc.kill()
+                c.proc.wait(timeout=60)
+        shutil.rmtree(tmp, ignore_errors=True)
+    took = time.perf_counter() - t0
+    print(f"(p) the serving phase took {took:.1f} s; on {name}",
+          flush=True)
+    return [{"phase": "(p1) serving gang", "members": got,
+             "region_charge": charged, "rel_l2": err,
+             "small_max_abs": small_err, "took_s": p1_s},
+            {"phase": "(p2) serving fleet", **f, "region_charge": charge,
+             "took_s": p2_s, "phase_s": took}]
+
+
 def process_tree(root: int) -> list:
     """``root`` and its descendants' pids, from /proc."""
     parents = {}
@@ -3492,6 +3967,8 @@ NATIVE = [
     {"name": "libvgpucore.so", "route": "gcc", "source":
      "vtpu_torch/csrc/shared_region.c", "replaces":
      "lib/vtpu/shared_region.c:476"},
+    {"name": "vgpu-validator", "route": "gcc", "source":
+     "vtpu_torch/csrc/validator.c", "replaces": "lib/vtpu/validator.c:197"},
     {"name": "libnvidia-ml.so.1 (mock, CPU tests only)", "route": "gcc",
      "source": "vtpu_torch/csrc/mock_nvml.c", "replaces":
      "vtpu/plugin/tpulib.py:65"},
@@ -3509,6 +3986,9 @@ def main() -> int:
         return 0
     if len(sys.argv) > 1 and sys.argv[1] == "--sm-child":
         sm_child()
+        return 0
+    if len(sys.argv) > 1 and sys.argv[1] == "--serve-child":
+        serve_child(sys.argv[2])
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3611,7 +4091,9 @@ def main() -> int:
                if p["phase"].startswith("(b) case ")}
     phases += zoo_phase(name, zoo_alone)
     phases += node_agent_phase(name, solo, step_ms)
+    serve = serve_children()
     phases.append(livemove_phase(name))
+    phases += serving_phase(name, serve)
     cluster = ClusterRun(name)
     phases += northstar_phase(name)
     phases += cluster.finish(name)

@@ -21,6 +21,7 @@ import time
 import pytest
 
 import vtpu.enforce.region as jax_region
+from tests.torch_timing import timed
 from vtpu.enforce.region import RegionView as JaxRegionView
 from vtpu_torch import api, native
 from vtpu_torch.enforce.region import RegionView
@@ -248,6 +249,14 @@ def jax_shim(tmp_path_factory):
                     f"BUILD={build}"] + targets, check=True,
                    capture_output=True, timeout=300)
     return build
+
+
+@pytest.fixture(autouse=True)
+def no_pinned_core():
+    """Every test here times its children: none runs while another test
+    worker pins busy processes to a core (tests/torch_timing.py)."""
+    with timed():
+        yield
 
 
 @pytest.fixture(autouse=True)

@@ -68,6 +68,16 @@ LD_SO_PRELOAD_PATH = "/etc/ld.so.preload"
 # a validator binary beside it (vtpu/plugin/server.py:835-851)
 CONTAINER_LICENSE_PATH = "/vgpu/license"
 CONTAINER_VALIDATOR_PATH = "/usr/bin/vgpu-validator"
+# the validator's product name and its env (vtpu_torch/csrc/validator.c;
+# the JAX validator's VTPU_LICENSE_* under the GPU product's names): the
+# HMAC secret, or a file holding it (never inside the mounted license dir),
+# and the node name matched against the license's nodes= glob in place of
+# the hostname
+LICENSE_PRODUCT = "vgpu"
+ENV_LICENSE_SECRET = "VGPU_LICENSE_SECRET"
+ENV_LICENSE_SECRET_FILE = "VGPU_LICENSE_SECRET_FILE"
+ENV_LICENSE_NODE = "VGPU_LICENSE_NODE"
+LICENSE_SECRET_FILE_DEFAULT = "/etc/vgpu/license.secret"
 # lock directory the interposer shares between a node's containers
 # (mounted by Allocate at the same path inside and out)
 LOCK_DIR = "/tmp/vgpulock"
@@ -93,6 +103,9 @@ ENV_MIGRATED_FROM = "VTPU_MIGRATED_FROM"
 # enumerates it (FakeNvmlLib) instead of NVML. Also read by the mock
 # libnvidia-ml.so.1 (vtpu_torch/csrc/mock_nvml.c).
 ENV_FAKE_NVML = "VGPU_FAKE_NVML"
+# plugin/nvml.py: the nvidia-smi program whose "topo -m" matrix names each
+# card's NUMA node where NVML reports no PCI bus id (default "nvidia-smi")
+ENV_NVIDIA_SMI = "VGPU_NVIDIA_SMI"
 # node name (the plugin's --node-name default; set by the DaemonSet)
 ENV_NODE_NAME = "NODE_NAME"
 # plugin/server.py: kubelet registration backoff, kubelet.sock watch period,
@@ -108,6 +121,7 @@ ENV_RECONCILE_S = "VTPU_RECONCILE_S"
 # copies into the shim host dir
 ENV_SHIM_SO = "VGPU_SHIM_SO"
 ENV_PRELOAD_SRC = "VGPU_PRELOAD_SRC"
+ENV_VALIDATOR_BIN = "VGPU_VALIDATOR_BIN"
 # plugin/checkpoint.py: the allocation checkpoint's path and record TTL
 ENV_CHECKPOINT_PATH = "VTPU_CHECKPOINT_PATH"
 ENV_CHECKPOINT_TTL_S = "VTPU_CHECKPOINT_TTL_S"
@@ -189,6 +203,26 @@ ENV_LEASE_EXPIRE_S = "VTPU_LEASE_EXPIRE_S"
 ENV_SCHEDULER_PEERS = "VTPU_SCHEDULER_PEERS"
 ENV_SCHEDULER_ORDINAL = "VTPU_SCHEDULER_ORDINAL"
 ENV_POD_NAME = "POD_NAME"
+
+# --------------------------------------------------------------------------
+# Serving-gateway knobs (vtpu_torch/gateway; the JAX gateway's names,
+# vtpu/contracts.py:560-569)
+# --------------------------------------------------------------------------
+
+# gateway/batcher.py: the per-model queue bound, the continuous batch's
+# floor and ceiling, the p99 SLO in ms and the step-latency EWMA's weight
+ENV_GW_QUEUE = "VTPU_GW_QUEUE"
+ENV_GW_BATCH_MIN = "VTPU_GW_BATCH_MIN"
+ENV_GW_BATCH_MAX = "VTPU_GW_BATCH_MAX"
+ENV_GW_SLO_MS = "VTPU_GW_SLO_MS"
+ENV_GW_EWMA_ALPHA = "VTPU_GW_EWMA_ALPHA"
+# gateway/autoscaler.py: its poll period, the scale-up headroom under the
+# SLO, the idle polls before a scale-down, and the replica floor/ceiling
+ENV_GW_AUTOSCALE_S = "VTPU_GW_AUTOSCALE_S"
+ENV_GW_HEADROOM = "VTPU_GW_HEADROOM"
+ENV_GW_IDLE_ROUNDS = "VTPU_GW_IDLE_ROUNDS"
+ENV_GW_MIN_REPLICAS = "VTPU_GW_MIN_REPLICAS"
+ENV_GW_MAX_REPLICAS = "VTPU_GW_MAX_REPLICAS"
 
 # --------------------------------------------------------------------------
 # Node-monitor knobs (vtpu_torch/monitor; the JAX monitor's names, so one

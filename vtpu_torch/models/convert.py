@@ -15,6 +15,9 @@ Every model of the registry carries across by this map alone: VGG's
 (models/vgg.py), and the LSTM's scan-lifted cells broadcast their
 parameters over time, so ``lstm{i}/gates`` is one Dense kernel and bias.
 
+``serving_params_from_jax(w1, b1, w2)`` carries the serving MLP's weights
+(vtpu/models/serving.py) into the port's ``ShardedServingModel``.
+
 ``momentum_from_optax(opt_state, model)`` carries the momentum of
 ``optax.sgd(lr, momentum)`` (the ``trace`` of its TraceState, a tree shaped
 like the parameters) across with the same map, and
@@ -24,7 +27,7 @@ buffers the other way, into a trace tree of numpy arrays in flax's layout.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -130,3 +133,15 @@ def momentum_to_optax(optimizer: torch.optim.Optimizer,
         key, arr = _flax_leaf(leaf, buf.detach().float().cpu().numpy())
         node[key] = np.ascontiguousarray(arr)
     return tree
+
+
+def serving_params_from_jax(w1, b1, w2) -> Tuple[torch.Tensor, ...]:
+    """The serving MLP's full weights (``vtpu/models/serving.py``
+    ``_full_params()``: W1 [dim, hidden], b1 [hidden], W2 [hidden,
+    classes], numpy in) as f32 host tensors in the same layout: the
+    port's matmuls take ``x @ W1`` as the reference's do, so nothing is
+    transposed. Load them with ``ShardedServingModel.setup(params=...)``
+    (each member takes its own slice) or ``reference_logits(...,
+    params=...)``."""
+    return tuple(torch.from_numpy(np.array(a, dtype=np.float32))
+                 for a in (w1, b1, w2))

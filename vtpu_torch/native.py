@@ -14,6 +14,9 @@ missing or older than one of its sources, and a failed build raises.
   on ``LD_LIBRARY_PATH``.
 - ``libnvidia-ml.so.1`` under ``_build/mock_nvml/``: a stand-in NVML
   (``mock_nvml.c``) serving a JSON fixture of cards (``MOCK_NVML_FIXTURE``).
+- ``vgpu-validator``: the entitlement validator (``validator.c``), an
+  executable the device plugin installs beside ``libvgpu.so`` and mounts
+  into a container when the host carries a license.
 
 :func:`preload_file` also writes ``_build/ld.so.preload``, the file the
 device plugin installs on the host and mounts over a container's
@@ -53,7 +56,10 @@ TARGETS: Dict[str, Tuple[List[str], List[str], List[str]]] = {
         ["mock_cuda.c"], ["cuda_min.h"], ["-Wl,-soname,libcuda.so.1"]),
     os.path.join("mock_nvml", "libnvidia-ml.so.1"): (
         ["mock_nvml.c"], [], ["-Wl,-soname,libnvidia-ml.so.1"]),
+    "vgpu-validator": (["validator.c"], [], []),
 }
+#: targets linked as programs, not shared libraries
+EXECUTABLES = {"vgpu-validator"}
 
 
 class NativeBuildFailure(RuntimeError):
@@ -83,7 +89,8 @@ def build(target: str) -> str:
         if not _stale(out, sources + headers):
             return out  # another process built it while we waited
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = ([cc] + CFLAGS + SOFLAGS + ["-o", tmp]
+        link = [] if target in EXECUTABLES else SOFLAGS
+        cmd = ([cc] + CFLAGS + link + ["-o", tmp]
                + [os.path.join(CSRC, s) for s in sources]
                + ldflags)
         proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -117,6 +124,11 @@ def mock_nvml_library() -> str:
     return build(os.path.join("mock_nvml", "libnvidia-ml.so.1"))
 
 
+def validator() -> str:
+    """``vgpu-validator``, the entitlement validator program."""
+    return build("vgpu-validator")
+
+
 def preload_file() -> str:
     """``_build/ld.so.preload``: the interposer's in-container path, the
     content of the file mounted over a container's /etc/ld.so.preload."""
@@ -137,5 +149,5 @@ def preload_file() -> str:
 
 
 def build_all() -> Dict[str, str]:
-    """Build every library; name -> path."""
+    """Build every library and program; name -> path."""
     return {t: build(t) for t in TARGETS}

@@ -35,6 +35,7 @@ from .. import api
 from ..util.client import KubeClient, get_client
 from ..util.env import env_float, env_int, env_str
 from ..util.health import DegradedState, start_health_server
+from ..util.podcache import PodCache
 from .checkpoint import AllocationCheckpoint, default_checkpoint_path
 from .config import PluginConfig, load_node_config
 from .nvml import HealthTrackingNvmlLib, detect
@@ -118,6 +119,11 @@ def main(argv: Optional[List[str]] = None,
     gpulib = HealthTrackingNvmlLib(
         detect(), recovery_s=env_float(api.ENV_HEALTH_RECOVERY_S, 60.0))
 
+    # one watch-backed pod cache for every plugin incarnation: Allocate's
+    # pending-pod lookup reads it instead of LISTing the node's pods per
+    # call, and serves from its last view while the apiserver is dark
+    pod_cache = PodCache(client, node_name=args.node_name).start()
+
     checkpoint = AllocationCheckpoint(
         args.checkpoint_path
         or default_checkpoint_path(config.shim_host_dir))
@@ -127,6 +133,7 @@ def main(argv: Optional[List[str]] = None,
     crashes: List[float] = []
     while True:
         plugin = GPUDevicePlugin(gpulib, config, client, args.node_name,
+                                 pod_cache=pod_cache,
                                  checkpoint=checkpoint, degraded=degraded)
         registrar = Registrar(gpulib, plugin.rm, client, args.node_name,
                               degraded=degraded)

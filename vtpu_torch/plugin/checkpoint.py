@@ -21,11 +21,11 @@ from __future__ import annotations
 
 import logging
 import os
-import threading
 import time
 from typing import Dict, List, Optional
 
 from .. import api
+from ..util import lockdebug
 from ..util.atomicio import atomic_write_json, read_json
 from ..util.env import env_float, env_str
 from . import deviceplugin_pb2 as pb
@@ -88,7 +88,7 @@ class AllocationCheckpoint:
         self.ttl_s = (env_float(api.ENV_CHECKPOINT_TTL_S, CHECKPOINT_TTL_S,
                                 minimum=0.0)
                       if ttl_s is None else ttl_s)
-        self._lock = threading.Lock()
+        self._lock = lockdebug.lock("plugin.checkpoint")
         self._allocations: Dict[str, Dict] = {}
         self._write_failed_logged = False
         try:

@@ -5,10 +5,6 @@ pkg/device-plugin/nvidiadevice/nvinternal/plugin/server.go — lifecycle
 Start/Serve/Register (114-234), ListAndWatch with health push (245-259),
 and Allocate (280-403), the point where scheduler decisions turn into
 container env/mounts that put the container under ``libvgpu.so``.
-
-The JAX plugin's trace spans and lock-order tracking are not carried over
-(plain ``threading`` locks here), nor its watch-backed pod cache: Allocate
-lists the node's pods.
 """
 
 from __future__ import annotations
@@ -26,7 +22,9 @@ from typing import Dict, List, Optional
 import grpc
 
 from .. import api, native
-from ..util import codec, podutil, types
+from ..trace import trace_id_of_pod
+from ..trace import tracer as _tracer
+from ..util import codec, lockdebug, podutil, types
 from ..util.client import KubeClient, NotFoundError
 from ..util.env import env_float, env_int, env_str
 from ..util.health import DegradedState
@@ -96,11 +94,12 @@ def install_shim_artifacts(shim_host_dir: str) -> None:
     """Populate the host shim dir that every Allocate mount points into:
     libvgpu.so (vtpu_torch/_build, built at first use by
     vtpu_torch/native.py), the generated ld.so.preload naming its
-    in-container path, and the containers/ root of the region files. The
-    reference's DaemonSet copies /k8s-vgpu/lib onto the host the same way;
-    without this, kubelet's bind mounts would materialise empty
-    directories where the .so should be. Idempotent; tmp+rename so a
-    running container never maps a torn file. A missing artifact is
+    in-container path, the vgpu-validator program (mounted only where the
+    host carries a license), and the containers/ root of the region
+    files. The reference's DaemonSet copies /k8s-vgpu/lib onto the host
+    the same way; without this, kubelet's bind mounts would materialise
+    empty directories where the .so should be. Idempotent; tmp+rename so
+    a running container never maps a torn file. A missing artifact is
     logged and skipped (Allocate still names its mount)."""
     os.makedirs(os.path.join(shim_host_dir, "containers"), exist_ok=True)
     pairs = [
@@ -110,6 +109,9 @@ def install_shim_artifacts(shim_host_dir: str) -> None:
         (env_str(api.ENV_PRELOAD_SRC)
          or _built(native.preload_file, "ld.so.preload"),
          os.path.join(shim_host_dir, "ld.so.preload")),
+        (env_str(api.ENV_VALIDATOR_BIN)
+         or _built(native.validator, "vgpu-validator"),
+         os.path.join(shim_host_dir, "vgpu-validator")),
     ]
     installed = []
     for src, dst in pairs:
@@ -139,6 +141,7 @@ class GPUDevicePlugin(dp_grpc.DevicePluginServicer):
         client: KubeClient,
         node_name: str,
         socket_name: str = "vgpu.sock",
+        pod_cache=None,
         checkpoint: Optional[AllocationCheckpoint] = None,
         degraded: Optional[DegradedState] = None,
     ) -> None:
@@ -147,6 +150,10 @@ class GPUDevicePlugin(dp_grpc.DevicePluginServicer):
         self.client = client
         self.node_name = node_name
         self.socket_name = socket_name
+        # optional watch-backed PodCache (vtpu_torch/util/podcache):
+        # Allocate's pending-pod lookup hits it first instead of LISTing
+        # per call, and serves from it while the apiserver is dark
+        self.pod_cache = pod_cache
         # durable allocation checkpoint (docs/node-resilience.md): every
         # container response is persisted before its annotation slot is
         # consumed, so a restarted plugin answers kubelet's re-Allocate
@@ -158,14 +165,14 @@ class GPUDevicePlugin(dp_grpc.DevicePluginServicer):
         self.rm = ResourceManager(config)
 
         self.chips: List[ChipInfo] = gpulib.enumerate()
-        self._chips_lock = threading.Lock()
+        self._chips_lock = lockdebug.lock("plugin.chips")
         self._watchers: List[queue.Queue] = []
         self._server: Optional[grpc.Server] = None
         self._stop = threading.Event()
         self._socket_ino = -1
         #: set once a Register RPC succeeded
         self.registered = threading.Event()
-        self._register_mu = threading.Lock()
+        self._register_mu = lockdebug.lock("plugin.register")
         self._register_thread: Optional[threading.Thread] = None
         # knobs read once at construction so tests can tighten them via env
         self._register_backoff_s = env_float(
@@ -503,15 +510,20 @@ class GPUDevicePlugin(dp_grpc.DevicePluginServicer):
             log.exception("allocate crashed")
             context.abort(grpc.StatusCode.INTERNAL, str(e))
 
-    def _lookup_pending_pod(self):
-        """Pending-pod lookup with bounded retry/backoff: apiserver blips
-        retry inside kubelet's Allocate deadline; a persistently
-        unreachable apiserver fails the call (kubelet retries)."""
+    def _lookup_pending_pod(self, lookup: Dict[str, str]):
+        """Pending-pod lookup with bounded retry/backoff and a
+        last-known-good cache fallback (docs/node-resilience.md):
+        apiserver blips retry inside kubelet's Allocate deadline; a
+        persistently unreachable apiserver degrades to the watch cache's
+        last view (``lookup["source"] = "cache-degraded"``) instead of
+        failing the pod."""
         last_err: Optional[Exception] = None
         delay = self._allocate_backoff_s
         for attempt in range(self._allocate_retries):
             try:
-                pod = podutil.get_pending_pod(self.client, self.node_name)
+                pod = podutil.get_pending_pod(
+                    self.client, self.node_name,
+                    cache=self.pod_cache, detail=lookup)
                 self.degraded.clear("apiserver_unreachable")
                 return pod
             except Exception as e:
@@ -522,12 +534,24 @@ class GPUDevicePlugin(dp_grpc.DevicePluginServicer):
                     time.sleep(delay * (0.5 + random.random() / 2.0))
                     delay = min(delay * 2.0, 2.0)
         self.degraded.set("apiserver_unreachable", str(last_err))
+        cache = self.pod_cache
+        if cache is not None and cache.synced:
+            hit = podutil.pending_from(
+                cache.pods_on_node(self.node_name), self.node_name)
+            if hit is not None:
+                log.warning(
+                    "apiserver unreachable; serving Allocate lookup for "
+                    "%s from the last-known-good pod cache",
+                    hit["metadata"].get("name", "?"))
+                lookup["source"] = "cache-degraded"
+                return hit
         raise AllocateError(
             f"apiserver unreachable after {self._allocate_retries} "
-            f"lookup attempts: {last_err}")
+            f"lookup attempts and no cached pending pod: {last_err}")
 
     def _allocate(self, request) -> pb.AllocateResponse:
-        pod = self._lookup_pending_pod()
+        lookup: Dict[str, str] = {}
+        pod = self._lookup_pending_pod(lookup)
         if pod is None:
             raise AllocateError(
                 f"no pod in bind-phase=allocating for node {self.node_name}"
@@ -535,6 +559,7 @@ class GPUDevicePlugin(dp_grpc.DevicePluginServicer):
         meta = pod["metadata"]
         pod_key = f"{meta.get('namespace', 'default')}/{meta['name']}"
         pod_uid = meta.get("uid", "nouid")
+        degraded = lookup.get("source") == "cache-degraded"
         annos = meta.get("annotations", {}) or {}
         assigned_time = annos.get(types.ASSIGNED_TIME_ANNO, "")
         # responses a previous incarnation already issued for this pod
@@ -550,48 +575,71 @@ class GPUDevicePlugin(dp_grpc.DevicePluginServicer):
             self.checkpoint.forget(pod_uid)
             rec = None
         recorded = list(rec.get("containers", [])) if rec else []
-        responses = []
-        try:
-            for i, creq in enumerate(request.container_requests):
-                if i < len(recorded):
-                    responses.append(self._replay_container(
-                        pod_key, pod, i, recorded[i]))
-                    pod = self._refetch(pod)
-                    continue
-                devs = podutil.get_next_device_request(VENDOR, pod)
-                if not devs:
-                    raise AllocateError(
-                        "pod annotation has no remaining container "
-                        "assignment (kubelet asked for "
-                        f"{len(creq.devicesIDs)} devices)"
-                    )
-                resp = self._container_response(pod, devs)
-                # checkpoint BEFORE the annotation erase: a crash in
-                # between is healed by the replay path above
-                self.checkpoint.record_container(
-                    pod_uid, pod_key, i, response_to_record(resp),
-                    assigned_time=assigned_time,
-                    host_mem_mb=_pod_host_mem_mb(pod))
-                responses.append(resp)
-                podutil.erase_next_device_type_from_annotation(
-                    self.client, VENDOR, pod
-                )
-                pod = self._refetch(pod)
-        except Exception:
+        # the trace id stitches this span to the webhook/filter/bind
+        # spans the control plane emitted for the same pod
+        with _tracer.span(trace_id_of_pod(pod), "allocate", pod=pod_key,
+                          node=self.node_name,
+                          lookup=lookup.get("source", "list")) as sp:
+            responses = []
             try:
-                podutil.pod_allocation_failed(self.client, pod,
-                                              self.node_name)
-                # the scheduler will re-assign this pod: the recorded
-                # responses are for a dead assignment
-                self.checkpoint.forget(pod_uid)
-            except Exception as e:
-                log.warning("cannot stamp allocation failure for %s: %s",
-                            pod_key, e)
-            raise
-        self.checkpoint.mark_complete(pod_uid)
-        podutil.pod_allocation_try_success(self.client, pod, self.node_name)
-        self.checkpoint.mark_converged(pod_uid)
-        return pb.AllocateResponse(container_responses=responses)
+                for i, creq in enumerate(request.container_requests):
+                    if i < len(recorded):
+                        responses.append(self._replay_container(
+                            pod_key, pod, i, recorded[i], degraded))
+                        if not degraded:
+                            pod = self._refetch(pod)
+                        continue
+                    if degraded:
+                        # consuming a fresh annotation slot needs an
+                        # apiserver write; without one the allocation
+                        # would be unaccounted: fail, kubelet retries
+                        raise AllocateError(
+                            "apiserver unreachable and container "
+                            f"#{i} has no checkpointed response")
+                    devs = podutil.get_next_device_request(VENDOR, pod)
+                    if not devs:
+                        raise AllocateError(
+                            "pod annotation has no remaining container "
+                            "assignment (kubelet asked for "
+                            f"{len(creq.devicesIDs)} devices)"
+                        )
+                    resp = self._container_response(pod, devs)
+                    # checkpoint BEFORE the annotation erase: a crash in
+                    # between is healed by the replay path above
+                    self.checkpoint.record_container(
+                        pod_uid, pod_key, i, response_to_record(resp),
+                        assigned_time=assigned_time,
+                        host_mem_mb=_pod_host_mem_mb(pod))
+                    responses.append(resp)
+                    podutil.erase_next_device_type_from_annotation(
+                        self.client, VENDOR, pod
+                    )
+                    pod = self._refetch(pod)
+            except Exception:
+                if not degraded:
+                    try:
+                        podutil.pod_allocation_failed(self.client, pod,
+                                                      self.node_name)
+                        # the scheduler will re-assign this pod: the
+                        # recorded responses are for a dead assignment
+                        self.checkpoint.forget(pod_uid)
+                    except Exception as e:
+                        log.warning("cannot stamp allocation failure "
+                                    "for %s: %s", pod_key, e)
+                raise
+            sp.set("containers", len(responses))
+            self.checkpoint.mark_complete(pod_uid)
+            if degraded:
+                log.warning(
+                    "Allocate for %s served entirely from checkpoint "
+                    "while apiserver unreachable; annotation "
+                    "convergence (slot erase + success flip + node "
+                    "lock release) owed to the reconcile loop", pod_key)
+            else:
+                podutil.pod_allocation_try_success(self.client, pod,
+                                                   self.node_name)
+                self.checkpoint.mark_converged(pod_uid)
+            return pb.AllocateResponse(container_responses=responses)
 
     def _refetch(self, pod: Dict) -> Dict:
         return self.client.get_pod(
@@ -600,13 +648,14 @@ class GPUDevicePlugin(dp_grpc.DevicePluginServicer):
         )
 
     def _replay_container(self, pod_key: str, pod: Dict, index: int,
-                          record: Dict) -> pb.ContainerAllocateResponse:
+                          record: Dict, degraded: bool = False
+                          ) -> pb.ContainerAllocateResponse:
         """Reissue container `index`'s response verbatim from the
         checkpoint, catching the annotation up when the previous
         incarnation died between the checkpoint write and the erase."""
         log.info("replaying checkpointed container #%d for %s",
                  index, pod_key)
-        if len(self._consumed_slots(pod)) <= index:
+        if not degraded and len(self._consumed_slots(pod)) <= index:
             podutil.erase_next_device_type_from_annotation(
                 self.client, VENDOR, pod)
         return record_to_response(record)

@@ -1,6 +1,8 @@
 """Elastic quotas: the leader-gated live-resize control loop.
 
-The port's copy of vtpu/scheduler/rebalancer.py.
+The port's copy of vtpu/scheduler/rebalancer.py, with one deliberate
+difference (F11, ``_plan_container``): a container none of whose devices
+has been charged a byte yet (no CUDA context) is never shrunk.
 
 docs/elastic-quotas.md. Production serving load
 breathes daily, but a pod's HBM quota was fixed at admission for its
@@ -287,8 +289,15 @@ class Rebalancer:
             targets = [max(desired[i], quota[i])
                        for i in range(len(devs))]
             return "grow", targets, quota
-        # shrink: every device comfortable AND the release is material
+        # shrink: every device comfortable AND the release is material.
+        # F11, a deliberate difference from the JAX rebalancer: never
+        # while a device reads 0 MiB used. Every live CUDA process holds
+        # its context's footprint in the region (libvgpu.so charges it),
+        # so 0 MiB means a pod that attached before making its context;
+        # the reference's rule would shrink it to 1 MiB and refuse its
+        # first allocation.
         if (all(desired[i] <= quota[i] for i in range(len(devs)))
+                and all(sig.used_mb[i] > 0 for i in range(len(devs)))
                 and sum(quota) - sum(desired)
                 >= SHRINK_MIN_RELEASE * sum(quota)):
             return "shrink", desired, quota

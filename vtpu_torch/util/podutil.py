@@ -117,14 +117,44 @@ def pending_from(pods, node_name: str) -> Optional[Dict[str, Any]]:
     return None
 
 
-def get_pending_pod(client: KubeClient,
-                    node_name: str) -> Optional[Dict[str, Any]]:
+def get_pending_pod(client: KubeClient, node_name: str,
+                    cache=None,
+                    detail: Optional[Dict[str, Any]] = None
+                    ) -> Optional[Dict[str, Any]]:
     """Find the pod bound to this node still in bind-phase=allocating
     (reference: util.go:41-66, which lists ALL pods per Allocate; the list
     is scoped to this node server-side, since the scheduler's Bind always
-    precedes kubelet's Allocate). The JAX package can nominate the pod
-    from a watch-backed cache first (vtpu/util/podutil.py:130-179); the
-    port has no pod cache yet and always lists."""
+    precedes kubelet's Allocate).
+
+    A watch-backed ``cache`` (:class:`vtpu_torch.util.podcache.PodCache`)
+    only nominates the candidate: the hit is re-read with one GET and the
+    pending predicate re-checked on the fresh object, since a watch that
+    lags the apiserver could hand back a pod whose allocation already
+    completed, and the trimmed cache entry lacks ``spec.containers``.
+    Misses and failed confirmations fall through to the LIST: Allocate
+    races the scheduler's annotation patch, and a watch one beat behind
+    must delay the lookup, not fail the pod.
+
+    ``detail`` (when passed) receives the lookup's provenance under
+    ``source``: "cache" for a confirmed nomination, "list" for the LIST,
+    which the ``allocate`` span records."""
+    if cache is not None and cache.synced:
+        hit = pending_from(cache.pods_on_node(node_name), node_name)
+        if hit is not None:
+            meta = hit["metadata"]
+            try:
+                fresh = client.get_pod(meta.get("namespace", "default"),
+                                       meta["name"])
+            except NotFoundError:
+                fresh = None
+            if fresh is not None:
+                confirmed = pending_from([fresh], node_name)
+                if confirmed is not None:
+                    if detail is not None:
+                        detail["source"] = "cache"
+                    return confirmed
+    if detail is not None:
+        detail["source"] = "list"
     return pending_from(client.list_pods_on_node(node_name), node_name)
 
 
