@@ -98,11 +98,15 @@ built:
 
    (a) launch visibility: under ``libvgpu.so`` with no SM limit, the
        region's launch count over one case 1.1 step is at least the number
-       of kernels ``torch.profiler`` traces for it;
+       of kernels ``torch.profiler`` traces for it; and over one step from
+       a host batch to host logits, the region's TRANSFER calls (the copy
+       hooks' profile) are at least the Memcpy records it traces, and more
+       than none;
    (b) unthrottled cost: case 1.1 and case 1.2 ms/step alone, under
        ``libvgpu.so`` with no SM limit and with ``CUDA_DEVICE_SM_LIMIT=100``
-       (where each launch's device time is still measured and charged);
-       case 1.1 within 3% of alone (case 1.2's printed: host-bound, it
+       (where each launch's device time is still measured and charged),
+       each the best of 3 timings in turns; case 1.1 within 3% of alone
+       (case 1.2's printed: host-bound, it
        spreads between processes);
    (c) solo throttle: case 1.1 at a 50% limit for 6 s, each step
        synchronised, runs at 0.40-0.60x its unthrottled img/s, and the
@@ -133,7 +137,8 @@ built:
 9. phase (k), the other models: every case of the reference's matrix
    (ResNet-V2-50 and -152, VGG-16, DeepLab-v3, the stacked LSTM;
    inference and training) alone at its published batch and shape, bf16,
-   seeded weights (one warm-up step for the cases past 1.x), in one child
+   seeded weights (one warm-up step and 2 timed steps for an inference
+   case past 1.x, 1 for a training case), in one child
    under ``libvgpu.so`` with no limit, whose context is made with phase
    8's children and which idles while they run: step
    ms, img/s (sequences/s for the LSTM), peak ``memory_reserved()``, the
@@ -181,7 +186,11 @@ built:
    (``vtpu_torch.monitor.__main__.main``, ``--sweep-interval 1``) with an
    in-memory apiserver, over the plugin's containers directory, and pods
    are case 1.1 ``--sm-child`` children started from Allocate responses
-   (``gpumem`` 12288 MiB). Pod H alone (priority 0, ``gpucores`` 50) is
+   (``gpumem`` 12288 MiB): pods H, L and F are allocated and their
+   processes started ahead of their turns (``VGPU_SMOKE_HOLD``): H as the
+   monitor starts, L beside U's and U2's step, F as L exits (a held pod's
+   region exists from its import on, so never while a pod alone is
+   measured). Pod H alone (priority 0, ``gpucores`` 50) is
    released (``utilization_switch`` 1) within 3 sweeps and runs at >= 0.95x
    phase (c)'s unthrottled img/s; the memory gauges match its quota, its
    ``memory_reserved()`` and footprint charge (within 256 MiB), NVML's
@@ -261,7 +270,8 @@ built:
    numa-bind pod inside one NUMA node; no pod refused that a plain
    first-fit over the same recomputed usage places at that point of the
    stream; the card's used memory and compute processes unmoved while it
-   runs. Prints /filter p50 and p99 (and /webhook's, /bind's), binds a
+   runs (5 s alone, then beside phase (l)). Prints /filter p50 and p99
+   (and /webhook's, /bind's), binds a
    second, placed and refused counts and the phase's time;
 12. phase (l), the north star: ``python -m vtpu_torch.northstar`` with 4
    pods of case 1.1 at 3 GiB each for 6 s (each a child under
@@ -280,12 +290,17 @@ built:
    calls, the top cost centers printed; ``--parity --cases 1.1 --reps 1``
    against that profile as its baseline (``VTPU_PARITY_P50X=0.5``: a
    self-check that the profile half runs): the shim/native best-rep ratio
-   at least 0.95; ``--interleave --quick --cases 1.1,3.1``: both halves of
-   both cases, nothing written; then case 1.1 under libvgpu.so with the
+   at least 0.95; ``--interleave --quick --cases 1.1,3.1``, beside the
+   profile mode (no gate times either): both halves of both cases,
+   nothing written; the profile's table has ``transfer`` and
+   ``done_with_buffer`` rows; then case 1.1 under libvgpu.so with the
    profile on and off (``VTPU_PROFILE=0``), one rep each, the cost
-   printed, not gated; the phase prints its time;
+   printed, not gated;
 14. prints the port's native components (the JAX package has no TPU kernel,
    so ``kernels`` is empty) and, last, ``{"ok": true, "device": ...}``.
+
+Every phase prints its wall time on a line of its own ("... the phase took
+N s"), and the script its own before the JSON lines.
 
 Any failed phase ends the run with a non-zero exit and no final line. So
 does a machine without CUDA, or a directory without the repository.
@@ -298,6 +313,7 @@ import fcntl
 import json
 import math
 import os
+import re
 import select
 import shutil
 import socket
@@ -308,6 +324,7 @@ import threading
 import time
 from concurrent import futures
 
+T_START = time.perf_counter()  # the script's start, for its wall time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
@@ -356,11 +373,13 @@ TRAIN_HEADROOM = 0.25
 TRIM_LOG = "memory pool at the quota, trimmed"
 WARMUP = 3
 # timed steps: 10 for cases 1.x; phase (k) times the other cases' steps
-# fewer (the LSTM's training step runs ~96,000 launches, 1.6-2.0 s), after
+# fewer (the LSTM's training step runs ~96,000 launches, 2.2-2.4 s), after
 # one warm-up step (its kernels loaded, its allocator's cache grown), to
-# keep the script inside its time
+# keep the script inside its time: 2 an inference case, 1 a training case
+# (3 and 2 before the script was cut to 1,000 s; (k)'s gates are finite
+# outputs and the quota checks, none a time)
 STEPS = {c.case: 10 if c.case.startswith("1.") else
-         3 if c.mode == "inference" else 2 for c in BENCH_CASES}
+         2 if c.mode == "inference" else 1 for c in BENCH_CASES}
 WARMUPS = {c.case: WARMUP if c.case.startswith("1.") else 1
            for c in BENCH_CASES}
 CHILD_TIMEOUT_S = 300
@@ -382,9 +401,36 @@ class SmokeFailure(Exception):
     pass
 
 
+# A host's probe outside every process list makes a CUDA context for ~110 ms
+# every 120 s (~0.5 GB; NVML sampled every ms on the H100 host, PERF.md):
+# it only adds to the card's used memory, for less than CARD_READ_S. What
+# the card holds for the run's processes, read while they hold still, is the
+# least it shows over CARD_READ_S.
+CARD_READ_S = 0.25
+
+
+def card_free() -> int:
+    """the card's free bytes (torch.cuda.mem_get_info), the most over
+    CARD_READ_S"""
+    most, until = 0, time.perf_counter() + CARD_READ_S
+    while True:
+        most = max(most, torch.cuda.mem_get_info()[0])
+        if time.perf_counter() >= until:
+            return most
+        time.sleep(0.01)
+
+
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+def phase_took(label: str, t0: float, name: str) -> float:
+    """prints the wall time of the phase ``label`` begun at ``t0``
+    (time.perf_counter) on a line of its own; its seconds"""
+    took = time.perf_counter() - t0
+    print(f"{label} the phase took {took:.1f} s; on {name}", flush=True)
+    return took
 
 
 def card() -> str:
@@ -443,11 +489,12 @@ def time_steps(run, steps: int, warmup: int = WARMUP):
     return outs, start.elapsed_time(end) / steps, host_ms
 
 
-def run_case(case, model, steps: int):
-    """The case's steps on its model, after its WARMUPS: (last output, ms,
-    host ms, img/s). Inference reuses one batch; training takes a distinct
-    seeded batch each step and checks that every loss is finite."""
-    warmup = WARMUPS[case.case]
+def run_case(case, model, steps: int, warmup=None):
+    """The case's steps on its model, after ``warmup`` steps (its WARMUPS
+    unless given): (last output, ms, host ms, img/s). Inference reuses one
+    batch; training takes a distinct seeded batch each step and checks that
+    every loss is finite."""
+    warmup = WARMUPS[case.case] if warmup is None else warmup
     if case.mode == "inference":
         x, _ = make_batch(case, 0)
         step = make_infer_step(model)
@@ -711,7 +758,8 @@ def quota_child(case_name: str, quota: int) -> None:
         raise SmokeFailure("an allocation past the quota succeeded")
     except torch.OutOfMemoryError:
         pass
-    after, _, _, _ = run_case(case, model, 1)
+    # the case runs on past the refusal: one step, its kernels warm
+    after, _, _, _ = run_case(case, model, 1, warmup=0)
     torch.cuda.synchronize()
     if case.mode == "inference":
         drift = rel_l2(after, out)
@@ -823,16 +871,19 @@ def stop_held() -> None:
         shutil.rmtree(child.tmp, ignore_errors=True)
 
 
-def pipelined(steps: list, first) -> list:
+def pipelined(steps: list, first, name: str) -> list:
     """Runs ``steps``, (start, run) pairs, in order: ``run(child)`` gets
     what ``start()`` returned, its children started ahead. Step k+1's
     ``start`` is called as step k starts, so its interpreters load while
     step k runs; ``first`` is step 0's, started earlier still (step 0's
-    ``start`` is not called)."""
+    ``start`` is not called). Each step's wall time is printed."""
     results, child = [], first
     for k, (_, run) in enumerate(steps):
         upcoming = steps[k + 1][0]() if k + 1 < len(steps) else None
+        t0 = time.perf_counter()
         results.append(run(child))
+        if isinstance(results[-1], dict):
+            phase_took(f"{results[-1]['phase']}:", t0, name)
         child = upcoming
     return results
 
@@ -863,7 +914,7 @@ def quota_phase(name: str, case_name: str, quota: int,
     """``case_name`` under ``quota`` and ``alloc_conf`` in ``child``, a
     QuotaChild of the same arguments; see the module docstring."""
     label = alloc_conf or "default allocator"
-    free0, _ = torch.cuda.mem_get_info()
+    free0 = card_free()
     child.go()
     tmp, cache, errf, proc = child.tmp, child.cache, child.errf, child.proc
     try:
@@ -877,7 +928,7 @@ def quota_phase(name: str, case_name: str, quota: int,
                                f"failed, rc {proc.returncode}:\n"
                                f"{errf.read()[-4000:]}")
         report = json.loads(line)
-        free1, _ = torch.cuda.mem_get_info()
+        free1 = card_free()
         footprint = free0 - free1  # the child's real device memory
         with RegionView(cache) as view:
             pids = [p.pid for p in view.procs()]
@@ -969,11 +1020,11 @@ def fill_phase(name: str, quota: int, child: SmChild) -> dict:
     used_memory is held to the same bound."""
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    free0, _ = torch.cuda.mem_get_info()
+    free0 = card_free()
     child.go()
     try:
         r = child.ask("fill")
-        free1, _ = torch.cuda.mem_get_info()
+        free1 = card_free()
         apps = compute_apps_memory()
         with child.view() as view:
             region_used = view.used(0)
@@ -1066,11 +1117,11 @@ def run_fill_phase(name: str, case_name: str, quota: int,
     charge beyond the card's growth at most 5%."""
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    free0, _ = torch.cuda.mem_get_info()
+    free0 = card_free()
     child.go()
     try:
         r = child.ask("run_fill", case=case_name, steps=F6_STEPS)
-        free1, _ = torch.cuda.mem_get_info()
+        free1 = card_free()
         with child.view() as view:
             region_used = view.used(0)
         child.ask("release")
@@ -1243,6 +1294,7 @@ def zoo_phase(name: str, alone: SmChild) -> list:
         if alone.proc.poll() is None:
             alone.proc.kill()
             alone.proc.wait(timeout=60)
+    phase_took("(k) every case alone:", start, name)
     by_case = {r["phase"].split()[2]: r for r in results}
 
     def quota_step(case_name, child):
@@ -1264,7 +1316,7 @@ def zoo_phase(name: str, alone: SmChild) -> list:
                 lambda c=c: run_fill_child(c, quotas[c]),
                 lambda child, c=c: run_fill_phase(name, c, quotas[c],
                                                   child)))
-    results += pipelined(steps, first)
+    results += pipelined(steps, first, name)
     took = time.perf_counter() - start
     print(f"(k) the phase took {took:.1f} s; on {name}", flush=True)
     results.append({"phase": "(k) time", "phase_s": took})
@@ -1286,8 +1338,12 @@ HOST_LIMIT = 1 * GiB
 PINNED = 256 << 20  # (h): pinned tensors of this size up to the limit
 REGISTERED = 64 << 20
 # (b): case 1.1 with no SM limit and at 100 against the same call's run
-# alone
+# alone, each the best of UNTHROTTLED_REPS timings in turns (as (m)'s
+# profile cost): something outside the run delays the card's work now and
+# then (on the H100 host, a 24 ms step took 25.7-89.7 ms about every 31 s:
+# PERF.md), which only adds time
 UNTHROTTLED_COST = 0.03
+UNTHROTTLED_REPS = 3
 # (c): launches charged by an argument key never seen before (their shape's
 # least time), against the run's launches
 NEW_KEY_MAX = 0.05
@@ -1415,6 +1471,14 @@ def sm_child() -> None:
             (mine,) = [p for p in view.procs() if p.pid == os.getpid()]
         return mine
 
+    def transfers():
+        """(calls, bytes) of the region's TRANSFER class, this thread's
+        notes published"""
+        slot()
+        with RegionView(enf.quota.cache_path) as view:
+            cell = view.snapshot().prof["transfer"]
+        return cell.calls, cell.bytes
+
     def infer():
         case = CASES["1.1"]
         x, _ = make_batch(case, 0)
@@ -1440,8 +1504,28 @@ def sm_child() -> None:
         kernels = sum(1 for e in prof.events()
                       if e.device_type == DeviceType.CUDA
                       and not e.name.startswith(("Memcpy", "Memset")))
+        # a serving step: the batch from the host, the logits back to it
+        xh = x.cpu()
+
+        def host_step():
+            return step(xh.to("cuda")).float().cpu()
+
+        for _ in range(WARMUP):
+            host_step()
+        t0 = transfers()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            host_step()
+            torch.cuda.synchronize()
+        t1 = transfers()
+        copies = [e.name for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and e.name.startswith("Memcpy")]
         return {"region_launches": after - before,
-                "profiler_kernels": kernels}
+                "profiler_kernels": kernels,
+                "region_transfers": t1[0] - t0[0],
+                "region_transfer_bytes": t1[1] - t0[1],
+                "profiler_memcpys": len(copies),
+                "memcpy_kinds": sorted(set(copies))}
 
     def timed(fn, seconds):
         """fn() then a synchronisation, over and over for ``seconds``:
@@ -1746,6 +1830,11 @@ def compute_phases(name: str, children: dict) -> tuple:
     phases, phase (k)'s child alone, ready and idle while they ran)."""
     children = dict(children)
     phases = []
+    lap = [time.perf_counter()]
+
+    def took(label: str) -> None:
+        phase_took(label, lap[0], name)
+        lap[0] = time.perf_counter()
 
     try:
         # every child started, its context made, before any is timed: a
@@ -1762,19 +1851,27 @@ def compute_phases(name: str, children: dict) -> tuple:
         # (b) unthrottled cost, then (a) launch visibility
         times = {}
         for case_name in ("1.1", "1.2"):
-            for child in (alone, free, full):
-                times[case_name, child.label] = child.ask(
-                    "time", case=case_name)
+            for _ in range(UNTHROTTLED_REPS):
+                for child in (alone, free, full):
+                    times.setdefault((case_name, child.label), []).append(
+                        child.ask("time", case=case_name)["ms"])
         cost = {}
         for case_name in ("1.1", "1.2"):
-            base = times[case_name, "alone"]["ms"]
+            base = min(times[case_name, "alone"])
             res = {"phase": f"(b) case {case_name} unthrottled cost"}
             for child in (alone, free, full):
-                ms = times[case_name, child.label]["ms"]
+                ms = min(times[case_name, child.label])
                 res[child.label] = ms
                 res[f"{child.label} vs alone"] = ms / base - 1
+                res[f"{child.label} each"] = times[case_name, child.label]
+            each = "; ".join(
+                f"{c.label} " + ", ".join(
+                    f"{v:.3f}" for v in times[case_name, c.label])
+                for c in (alone, free, full))
             print(f"(b) case {case_name} ms/step (CUDA events, "
-                  f"{STEPS[case_name]} steps): alone {base:.3f}; under "
+                  f"{STEPS[case_name]} steps, the best of "
+                  f"{UNTHROTTLED_REPS} in turns: {each}): alone "
+                  f"{base:.3f}; under "
                   f"libvgpu.so with no SM limit "
                   f"{res['no SM limit']:.3f} "
                   f"({res['no SM limit vs alone']:+.2%}), at 100 "
@@ -1787,6 +1884,7 @@ def compute_phases(name: str, children: dict) -> tuple:
             slower = cost["1.1"][f"{label} vs alone"]
             check(slower <= UNTHROTTLED_COST, f"(b) case 1.1 under "
                   f"libvgpu.so ({label}) {slower:+.2%} slower than alone")
+        took("(b) (its children's contexts and models included)")
         seen = free.ask("profile")
         print(f"(a) case 1.1, one step under libvgpu.so: "
               f"{seen['region_launches']} launches in the region, "
@@ -1794,13 +1892,22 @@ def compute_phases(name: str, children: dict) -> tuple:
               f" on {name}", flush=True)
         check(seen["region_launches"] >= seen["profiler_kernels"] > 0,
               "(a) launches escaped the interposer")
+        print(f"(a) case 1.1, one step from the host's batch to the host's "
+              f"logits under libvgpu.so: {seen['region_transfers']} copies "
+              f"in the region's TRANSFER ({seen['region_transfer_bytes']} "
+              f"B), {seen['profiler_memcpys']} Memcpy records traced by "
+              f"torch.profiler {seen['memcpy_kinds']}; on {name}",
+              flush=True)
+        check(seen["region_transfers"] >= seen["profiler_memcpys"] > 0,
+              "(a) copies escaped the interposer's profile")
         phases.append(dict(seen, phase="(a) launch visibility"))
+        took("(a)")
 
         # the unthrottled references, then (c) and (e) at 50%
         ref = free.ask("run", seconds=REF_RUN_S)
         ref_graph = free.ask("graph", seconds=GRAPH_RUN_S)
         solo = ref["img_s"]
-        step_ms = times["1.1", "no SM limit"]["ms"]
+        step_ms = cost["1.1"]["no SM limit"]
         keys0 = half.ask("keys")
         run = half.ask("run", seconds=SM_RUN_S)
         keys = half.ask("keys")
@@ -1833,6 +1940,7 @@ def compute_phases(name: str, children: dict) -> tuple:
         check(0.8 <= debit <= 1.1, f"(c) debited {debit:.3f}x the step time")
         check(new_share < NEW_KEY_MAX, f"(c) {new_share:.2%} of the launches "
               f"charged by a new argument key")
+        took("(c) (the unthrottled references included)")
         g = half.ask("graph", seconds=GRAPH_RUN_S)
         gshare = g["replays_s"] / ref_graph["replays_s"]
         print(f"(e) case 1.1 captured as a CUDA graph: replays at a 50% SM "
@@ -1845,6 +1953,7 @@ def compute_phases(name: str, children: dict) -> tuple:
                        "unthrottled_replays_s": ref_graph["replays_s"], **g})
         check(0.40 <= gshare <= 0.60, f"(e) 50% replays at {gshare:.3f}x")
         check(g["replay_vs_eager_rel_l2"] <= BF16_REL, "(e) replay logits")
+        took("(e)")
 
         # (g) the gate
         ok = half.ask("step")
@@ -1868,6 +1977,7 @@ def compute_phases(name: str, children: dict) -> tuple:
               f"(g) step past the lowered limit: {refused}, {gated} gate "
               f"refusals")
         check(again.get("finite") is True, "(g) step after the restore")
+        took("(g)")
 
         # (d) two tenants at once
         for child in (hi, lo):
@@ -1896,6 +2006,7 @@ def compute_phases(name: str, children: dict) -> tuple:
               f"{REF_RUN_S:.0f} s: {both[0]:.3f}x and {both[1]:.3f}x solo, "
               f"{sum(both):.3f} of one card together; on {name}", flush=True)
         phases[-1]["unlimited_pair_shares"] = both
+        took("(d)")
 
         # (f) feedback on the 30% tenant (priority 1)
         with lo.view() as view:
@@ -1925,6 +2036,7 @@ def compute_phases(name: str, children: dict) -> tuple:
         check(still == held and resumed > still, "(f) block did not hold")
         check(limited < 0.55 * solo and lifted > 0.8 * solo,
               "(f) utilization_switch did not lift the throttle")
+        took("(f)")
 
         # (h) the host ledger
         h = host.ask("host")
@@ -1942,8 +2054,13 @@ def compute_phases(name: str, children: dict) -> tuple:
               "(h) release")
         check(h["registered"] == REGISTERED and h["unregistered"] == 0,
               "(h) register")
-        for label in list(children):
-            children.pop(label).close()
+        took("(h)")
+        # the children exit at once; each close still checks its exit code
+        # and its region
+        closing = [children.pop(label) for label in list(children)]
+        with futures.ThreadPoolExecutor(len(closing)) as pool:
+            for done in [pool.submit(child.close) for child in closing]:
+                done.result()
     finally:
         for child in children.values():
             if child.proc.poll() is None:
@@ -2043,6 +2160,18 @@ def smi(query: str) -> list:
          "nounits"], check=True, capture_output=True, text=True,
         timeout=60).stdout
     return [line.strip() for line in out.strip().splitlines()]
+
+
+def card_used_mb() -> int:
+    """the card's used memory (nvidia-smi, MiB), the least over
+    CARD_READ_S"""
+    least, until = None, time.perf_counter() + CARD_READ_S
+    while True:
+        used = int(smi("memory.used")[0])
+        least = used if least is None else min(least, used)
+        if time.perf_counter() >= until:
+            return least
+        time.sleep(0.01)
 
 
 def compute_apps() -> int:
@@ -2281,7 +2410,7 @@ def node_agent_phase(name: str, solo_img_s: float,
 
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    used0, apps0 = int(smi("memory.used")[0]), compute_apps()
+    used0, apps0 = card_used_mb(), compute_apps()
     kubelet = None
     plugin = None
     workload = None
@@ -2367,7 +2496,7 @@ def node_agent_phase(name: str, solo_img_s: float,
         with open(f"/proc/{plugin.proc.pid}/maps") as f:
             libcuda = sorted({line.split()[-1] for line in f
                               if "libcuda" in line})
-        used1, apps1 = int(smi("memory.used")[0]), compute_apps()
+        used1, apps1 = card_used_mb(), compute_apps()
         print(f"(i) plugin process: NVML without CUDA in the process: "
               f"nvmlInit_v2 and binding {cold['init_ms']:.3f} ms, "
               f"enumeration {cold['enumerate_ms']:.3f} ms; modules of "
@@ -2434,7 +2563,7 @@ def node_agent_phase(name: str, solo_img_s: float,
               and pids == [q["pid"]], "(i) region")
         workload.close()   # checks the region is clean after the exit
         workload = None
-        took = time.perf_counter() - start
+        took = phase_took("(i) (the node agent; (j) apart)", start, name)
         # the exited pod's region directory goes, as the monitor's GC
         # removes it 300 s after the pod is deleted
         shutil.rmtree(os.path.dirname(cache))
@@ -2452,8 +2581,6 @@ def node_agent_phase(name: str, solo_img_s: float,
         if kubelet is not None:
             kubelet.stop(0)
         shutil.rmtree(tmp, ignore_errors=True)
-    print(f"(i) the node-agent phase took {took:.1f} s; on {name}",
-          flush=True)
     return [{"phase": "(i) node agent", "cards": len(chips),
             "nvml_init_ms": init_ms, "nvml_enumerate_ms": enum_ms,
             "plugin_nvml_init_ms": cold["init_ms"],
@@ -2658,7 +2785,9 @@ def nvml_utilization(uuid: str):
 def monitor_phase(name: str, solo_img_s: float, step_ms: dict, plugin,
                   sock: str, chip, tmp: str) -> dict:
     """Phase (j): the node monitor over phase (i)'s plugin. Pods are case
-    1.1 --sm-children started from Allocate responses (gpumem 12288 MiB);
+    1.1 --sm-children started from Allocate responses (gpumem 12288 MiB),
+    H, L and F ahead of their turns and held until then (as the compute
+    children are);
     the monitor writes their feedback plane, exports the reference's
     families and serves /nodeinfo. Steps:
 
@@ -2695,11 +2824,12 @@ def monitor_phase(name: str, solo_img_s: float, step_ms: dict, plugin,
     pods = {}
     replicas = iter(range(1, SPLIT))
 
-    def allocate(label: str, cores: int, **env_extra) -> SmChild:
+    def preallocate(label: str, cores: int, **env_extra) -> SmChild:
         """The pod, assigned as the scheduler would, allocated over the
-        plugin's socket and started from the response (its container env
-        adds only CUDA_TASK_PRIORITY and the policy, as a pod spec's
-        would)."""
+        plugin's socket and its process started from the response (its
+        container env adds only CUDA_TASK_PRIORITY and the policy, as a pod
+        spec's would), held: it makes no CUDA context until
+        :func:`allocate` gives it its turn."""
         pod_name, uid = f"smoke-{label.lower()}", f"smoke-uid-{label}"
         grant = types.ContainerDevice(uuid=chip.uuid, usedmem=NODE_QUOTA_MB,
                                       usedcores=cores)
@@ -2714,7 +2844,6 @@ def monitor_phase(name: str, solo_img_s: float, step_ms: dict, plugin,
                        api.RESOURCE_CORES: cores}}}]},
                "status": {"phase": "Running"}}
         plugin.ask("add_pod", pod=pod)
-        monitor.ask("add_pod", pod=pod)
         plugin.ask("patch_node", annos={api.NODE_LOCK_ANNO:
                                         nodelock.now_str()})
         with grpc.insecure_channel(sock) as ch:
@@ -2727,9 +2856,17 @@ def monitor_phase(name: str, solo_img_s: float, step_ms: dict, plugin,
         env["PYTHONPATH"] = ROOT
         env.update(runtime.process_env(ctr))
         env.update({k: str(v) for k, v in env_extra.items()})
-        child = SmChild(f"(j) pod {label}", given=(env,
-                                                   env[api.ENV_SHARED_CACHE]))
-        child.uid, child.pod_name = uid, pod_name
+        child = SmChild(f"(j) pod {label}", ahead=True,
+                        given=(env, env[api.ENV_SHARED_CACHE]))
+        child.uid, child.pod_name, child.pod = uid, pod_name, pod
+        return child
+
+    def allocate(label: str) -> SmChild:
+        """The pod's turn: the monitor's apiserver learns of it, and its
+        process (:func:`preallocate`) makes its context."""
+        child = ahead.pop(label)
+        monitor.ask("add_pod", pod=child.pod)
+        child.go()
         pods[label] = child
         return child
 
@@ -2792,12 +2929,15 @@ def monitor_phase(name: str, solo_img_s: float, step_ms: dict, plugin,
                   "snapshot_ages_s": ages}
         return gauge, busy, run, nvml, window
 
-    used0, apps0 = int(smi("memory.used")[0]), compute_apps()
+    used0, apps0 = card_used_mb(), compute_apps()
     monitor = MonitorChild(tmp, containers)
+    ahead = {}
     try:
+        # pod H's interpreter loads while the monitor starts
+        ahead["H"] = preallocate("H", NODE_SM_LIMIT, CUDA_TASK_PRIORITY=0)
         monitor.wait_ready()
         time.sleep(3 * SWEEP_S)
-        used1, apps1 = int(smi("memory.used")[0]), compute_apps()
+        used1, apps1 = card_used_mb(), compute_apps()
         modules = monitor.ask("modules")["modules"]
         check(modules == [], f"(j) the monitor imported {modules}")
         check(used1 - used0 < CONTEXT_MARGIN_MB and apps1 == apps0,
@@ -2805,7 +2945,7 @@ def monitor_phase(name: str, solo_img_s: float, step_ms: dict, plugin,
               f"MiB) or a context ({apps0} -> {apps1} processes)")
 
         # 1. pod H alone
-        h = allocate("H", NODE_SM_LIMIT, CUDA_TASK_PRIORITY=0)
+        h = allocate("H")
         h.ask("step")
         lift_s = within_sweeps(lambda: feedback(h)[1] == 1,
                                "H alone released")
@@ -2848,10 +2988,18 @@ def monitor_phase(name: str, solo_img_s: float, step_ms: dict, plugin,
                       usage - fp - reserved}
 
         # 2. pod U with no gpucores, alone (H idle); pod U2 (case 1.2) starts
-        # beside it and warms up before either is measured
-        u = allocate("U", 0)
+        # beside it and warms up before either is measured. Pod L's
+        # interpreter loads meanwhile: held and idle, it changes nothing
+        # this step measures (U and U2 run with no SM limit), and its
+        # region is made as torch loads (libvgpu.so attaches at the first
+        # resolution of a hooked entry point), so it starts no sooner:
+        # before H alone was measured it would have made H share the card
+        ahead["U"] = preallocate("U", 0)
+        ahead["U2"] = preallocate("U2", 0)
+        u = allocate("U")
         u2_start = time.perf_counter()
-        u2 = allocate("U2", 0)
+        u2 = allocate("U2")
+        ahead["L"] = preallocate("L", NODE_SM_LIMIT, CUDA_TASK_PRIORITY=1)
         u.ask("step")
         u2.ask("run", case="1.2", seconds=0.5)
         u2_s = time.perf_counter() - u2_start
@@ -2903,7 +3051,7 @@ def monitor_phase(name: str, solo_img_s: float, step_ms: dict, plugin,
         u2_s += time.perf_counter() - u2_start
 
         # 3. pod L joins while H runs
-        lo = allocate("L", NODE_SM_LIMIT, CUDA_TASK_PRIORITY=1)
+        lo = allocate("L")
         lo.ask("step")
         within_sweeps(lambda: feedback(h)[1] == 0 and feedback(lo)[1] == 0,
                       "H and L both throttled")
@@ -2956,12 +3104,14 @@ def monitor_phase(name: str, solo_img_s: float, step_ms: dict, plugin,
         check(l_share >= RELEASED_SHARE, f"(j) L alone ran at {l_share:.3f}x")
         result.update(l_unblock_s=unblock_s, l_release_s=release_s,
                       l_share=l_share)
+        # pod F's interpreter loads while L exits
+        ahead["F"] = preallocate("F", NODE_SM_LIMIT,
+                                GPU_CORE_UTILIZATION_POLICY="force")
         lo.close()
         gone("L")
 
         # 5. pod F alone under the force policy
-        f = allocate("F", NODE_SM_LIMIT,
-                     GPU_CORE_UTILIZATION_POLICY="force")
+        f = allocate("F")
         f.ask("step")
         f.send("run", seconds=8.0)
         switches = set()
@@ -2993,6 +3143,7 @@ def monitor_phase(name: str, solo_img_s: float, step_ms: dict, plugin,
               f"module; every region clean after its pod exited; the phase "
               f"took {took:.1f} s, and pod U2 {u2_s:.1f} s more; on {name}",
               flush=True)
+        phase_took(f"(j) (pod U2's {u2_s:.1f} s included)", start, name)
         check(took < MONITOR_PHASE_S, f"(j) took {took:.1f} s")
         result.update(sweeps=len(sweeps), sweep_p50_ms=p50,
                       sweep_max_ms=top, monitor_used_mib_delta=used1 - used0,
@@ -3000,7 +3151,7 @@ def monitor_phase(name: str, solo_img_s: float, step_ms: dict, plugin,
         monitor.stop()
         monitor = None
     finally:
-        for child in pods.values():
+        for child in list(pods.values()) + list(ahead.values()):
             if child.proc.poll() is None:
                 child.proc.kill()
                 child.proc.wait(timeout=60)
@@ -3022,8 +3173,10 @@ CLUSTER_SEED = 0
 CLUSTER_TIMEOUT_S = 600
 # the load test runs beside phase (l), whose gates read only the card's
 # memory (the scheduler takes none); before (l) starts it runs alone for
-# this long, its daemon up and serving, while the card is watched
-CLUSTER_ALONE_S = 10.0
+# this long, its daemon up and serving, while the card is watched (10 s
+# before the script was cut to 1,000 s: whether the scheduler's processes
+# hold a context or device memory does not grow with the watch)
+CLUSTER_ALONE_S = 5.0
 
 
 # phase (o): one live move at livemove's defaults, the offload model at a
@@ -3054,7 +3207,7 @@ def livemove_phase(name: str) -> dict:
     back within 256 MiB of its value before the phase; each protocol
     step's time and the step's ms are printed."""
     t0 = time.perf_counter()
-    before = int(smi("memory.used")[0])
+    before = card_used_mb()
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("CUDA_", "LD_PRELOAD", "VGPU_",
                                 "PYTORCH_CUDA_ALLOC_CONF"))}
@@ -3080,7 +3233,7 @@ def livemove_phase(name: str) -> dict:
           f"(o) live move rc {proc.returncode}: {res}\n"
           f"{proc.stderr[-4000:]}")
     time.sleep(1.0)  # the pods' contexts leave the card
-    after = int(smi("memory.used")[0])
+    after = card_used_mb()
     check(abs(after - before) <= MOVE_MEMORY_MARGIN_MB,
           f"(o) the card's used memory {before} -> {after} MiB")
     step_ms = sorted(res["step_ms"])[len(res["step_ms"]) // 2]
@@ -3097,6 +3250,7 @@ def livemove_phase(name: str) -> dict:
           f"{res['blocked_launches']}; losses max rel err "
           f"{res['loss_max_rel_err']:.3g}; card {before} -> {after} MiB; "
           f"phase {time.perf_counter() - t0:.1f} s; on {name}", flush=True)
+    phase_took("(o)", t0, name)
     return {"phase": "(o) live move", **{k: v for k, v in res.items()
                                          if k != "ok"},
             "step_ms_median": step_ms, "card_used_mib": [before, after],
@@ -3544,7 +3698,7 @@ class ClusterRun:
         self.tmp = tempfile.mkdtemp(prefix="vgpu-smoke-cluster-")
         self.out = open(os.path.join(self.tmp, "out"), "w+")
         self.err = open(os.path.join(self.tmp, "err"), "w+")
-        self.used0, self.apps0 = int(smi("memory.used")[0]), compute_apps()
+        self.used0, self.apps0 = card_used_mb(), compute_apps()
         self.used_max, self.apps_max = self.used0, self.apps0
         self.handles: list = []
         self.pids: set = set()
@@ -3634,6 +3788,8 @@ class ClusterRun:
         check(len(self.pids) >= 2 and not self.handles,
               f"(n) the scheduler's processes {sorted(self.pids)} held "
               f"{sorted(set(self.handles))}")
+        phase_took("(n) (beside (l) after its first "
+                   f"{self.alone_s:.0f} s)", self.t0, name)
         return [{"phase": "(n) scheduler at cluster scale", "took_s": took,
                  "alone_s": self.alone_s,
                  "card_memory_used_mib": [self.used0, self.used_max],
@@ -3873,6 +4029,15 @@ def bench_phase(name: str, alone_ms: float) -> dict:
               f"(m) default: {ratio:.3f}x phase (b)'s img/s")
         check(0 < flag["mfu"] <= 1, f"(m) default: MFU {flag['mfu']}")
 
+        # the profiling cost's children make their contexts, and the
+        # interleaved smoke (no gate times it) runs beside the profile
+        # mode, whose gates are counts; both are done before parity
+        cost_children = profile_children()
+        side = futures.ThreadPoolExecutor(1)
+        smoke = side.submit(bench_cmd, name, "interleave",
+                            ["--interleave", "--quick", "--cases", "1.1,3.1"],
+                            tmp)
+        side.shutdown(wait=False)
         prof_json = os.path.join(tmp, "profile.json")
         lines, _ = bench_cmd(name, "profile",
                              ["--profile", "--cases", "1.1",
@@ -3901,6 +4066,21 @@ def bench_phase(name: str, alone_ms: float) -> dict:
         check(cs.get("buf_alloc", {}).get("calls", 0) > 0,
               "(m) profile: no buf_alloc call")
         check(bool(top), "(m) profile: no top cost centers printed")
+        for row in ("transfer", "done_with_buffer"):
+            check(cs.get(row, {}).get("calls", 0) > 0,
+                  f"(m) profile: no {row} row")
+
+        lines, err = smoke.result()
+        halves = [t.strip() for t in err.splitlines()
+                  if t.strip().startswith(("[native]", "[shim]"))]
+        for t in halves:
+            print(f"(m) interleave {t}", flush=True)
+        res["interleave"] = halves
+        check(sorted(t.split()[0] + t.split()[2] for t in halves) == [
+            "[native]1.1", "[native]3.1", "[shim]1.1", "[shim]3.1"],
+            f"(m) interleave: {halves}")
+        check(not any(f.startswith("BENCH") for f in os.listdir(tmp)),
+              "(m) interleave at --quick wrote a matrix file")
 
         lines, err = bench_cmd(name, "parity",
                                ["--parity", "--cases", "1.1", "--reps", "1",
@@ -3913,23 +4093,6 @@ def bench_phase(name: str, alone_ms: float) -> dict:
         res["parity"] = parity
         check(parity["pass"] and parity["ratios"].get("1.1", 0) >= 0.95,
               f"(m) parity: {parity}")
-
-        # the profiling cost's children make their contexts meanwhile: the
-        # interleaved smoke is not timed
-        cost_children = profile_children()
-        lines, err = bench_cmd(name, "interleave",
-                               ["--interleave", "--quick", "--cases",
-                                "1.1,3.1"], tmp)
-        halves = [t.strip() for t in err.splitlines()
-                  if t.strip().startswith(("[native]", "[shim]"))]
-        for t in halves:
-            print(f"(m) interleave {t}", flush=True)
-        res["interleave"] = halves
-        check(sorted(t.split()[0] + t.split()[2] for t in halves) == [
-            "[native]1.1", "[native]3.1", "[shim]1.1", "[shim]3.1"],
-            f"(m) interleave: {halves}")
-        check(not any(f.startswith("BENCH") for f in os.listdir(tmp)),
-              "(m) interleave at --quick wrote a matrix file")
 
         res["profile_cost"] = profile_cost(name, cost_children)
     finally:
@@ -3947,23 +4110,7 @@ def bench_phase(name: str, alone_ms: float) -> dict:
 NATIVE = [
     {"name": "libvgpu.so", "route": "gcc", "source":
      "vtpu_torch/csrc/libvgpu.c", "replaces": "lib/vtpu/libvtpu.c:1007",
-     "hooks": ["dlsym", "cuGetProcAddress", "cuGetProcAddress_v2",
-               "cuMemAlloc_v2", "cuMemAllocPitch_v2", "cuMemFree_v2",
-               "cuMemCreate", "cuMemRelease", "cuMemGetInfo_v2",
-               "cuMemAllocAsync", "cuMemAllocAsync_ptsz",
-               "cuMemAllocFromPoolAsync", "cuMemAllocFromPoolAsync_ptsz",
-               "cuMemFreeAsync", "cuMemFreeAsync_ptsz", "cuMemPoolTrimTo",
-               "cuMemPoolDestroy", "cuLaunchKernel", "cuLaunchKernel_ptsz",
-               "cuLaunchKernelEx", "cuLaunchKernelEx_ptsz",
-               "cuLaunchCooperativeKernel", "cuLaunchCooperativeKernel_ptsz",
-               "cuGraphLaunch", "cuGraphLaunch_ptsz", "cuMemHostAlloc",
-               "cuMemAllocHost_v2", "cuMemFreeHost", "cuMemHostRegister_v2",
-               "cuMemHostUnregister", "cuCtxSynchronize",
-               "cuStreamSynchronize", "cuStreamSynchronize_ptsz",
-               "cuMemAllocManaged", "cuArrayCreate_v2", "cuArray3DCreate_v2",
-               "cuArrayDestroy", "cuMipmappedArrayCreate",
-               "cuMipmappedArrayDestroy", "cuDevicePrimaryCtxRetain",
-               "cuCtxCreate_v2", "cuCtxCreate_v3", "cuCtxCreate_v4"]},
+     "hooks": "its exported cu* entry points and dlsym (below)"},
     {"name": "libvgpucore.so", "route": "gcc", "source":
      "vtpu_torch/csrc/shared_region.c", "replaces":
      "lib/vtpu/shared_region.c:476"},
@@ -3972,7 +4119,25 @@ NATIVE = [
     {"name": "libnvidia-ml.so.1 (mock, CPU tests only)", "route": "gcc",
      "source": "vtpu_torch/csrc/mock_nvml.c", "replaces":
      "vtpu/plugin/tpulib.py:65"},
-]
+] + [{"name": f"{prog} (the native test plane, CPU tests only)",
+      "route": "gcc", "source": f"vtpu_torch/csrc/test/{prog}.c",
+      "replaces": f"lib/vtpu/test/{ref}.c:1"}
+     for prog, ref in (("region_test", "region_test"),
+                       ("region_stress", "region_stress"),
+                       ("interposer_test", "shim_test"))]
+
+
+def native_libs() -> list:
+    """NATIVE, with libvgpu.so's hooks read from the built library's dynamic
+    symbols (the cu* entry points and dlsym it exports)."""
+    out = subprocess.run(["nm", "-D", "--defined-only", native.interposer()],
+                         check=True, capture_output=True, text=True,
+                         timeout=60).stdout
+    names = [line.split()[-1] for line in out.splitlines() if line.strip()]
+    hooks = sorted(n for n in names
+                   if n == "dlsym" or re.match(r"cu[A-Z]", n))
+    return [dict(lib, hooks=hooks) if lib["name"] == "libvgpu.so" else lib
+            for lib in NATIVE]
 
 
 def main() -> int:
@@ -4022,8 +4187,14 @@ def main() -> int:
         build.result()
         beside["fill"] = fill_child(FILL_QUOTAS[0])
 
-    phases = [infer_phase(name), train_phase(name, start_beside),
-              sharded_phase(name)]
+    phases = []
+    for label, phase, args in (
+            ("case 1.1 native:", infer_phase, (name,)),
+            ("case 1.2 native:", train_phase, (name, start_beside)),
+            ("case 1.2 sharded 1x1:", sharded_phase, (name,))):
+        t0 = time.perf_counter()
+        phases.append(phase(*args))
+        phase_took(label, t0, name)
     phases[-1]["dryrun_multichip_1_s"] = dry_s = beside["dryrun"].result()
     print(f"dryrun_multichip(1) passed in {dry_s:.1f} s, beside the "
           f"training and sharded phases; on {name}", flush=True)
@@ -4083,7 +4254,9 @@ def main() -> int:
     # started ahead as the last memory phase starts
     steps.append((compute_children,
                   lambda children: compute_phases(name, children)))
-    *memory, (compute, zoo_alone) = pipelined(steps, beside["fill"])
+    t0 = time.perf_counter()
+    *memory, (compute, zoo_alone) = pipelined(steps, beside["fill"], name)
+    phase_took("the memory phases and (a)-(h):", t0, name)
     phases += memory + compute
     (solo,) = [p["unthrottled_img_s"] for p in phases
                if p["phase"] == "(c) case 1.1 at 50%"]
@@ -4100,8 +4273,10 @@ def main() -> int:
     (b11,) = [p for p in phases
               if p["phase"] == "(b) case 1.1 unthrottled cost"]
     phases.append(bench_phase(name, b11["alone"]))
+    print(f"chip_smoke.py took {time.perf_counter() - T_START:.1f} s "
+          f"from its start to its last phase; on {name}", flush=True)
     print(json.dumps({"card": name, "phases": phases}), flush=True)
-    print(json.dumps({"kernels": [], "native": NATIVE}), flush=True)
+    print(json.dumps({"kernels": [], "native": native_libs()}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -27,7 +27,7 @@ import time
 
 import pytest
 
-from tests.torch_timing import pinned_core
+from tests.torch_timing import exclusive, timed
 from vtpu_torch import api, native
 from vtpu_torch.enforce.region import RegionView, SharedRegionStruct
 
@@ -656,20 +656,17 @@ def test_argument_words_that_never_repeat_are_left_out(tmp_path, libs):
     assert left_out == 1, got["keys"]
 
 
-def test_memory_taken_at_first_launches_is_charged(tmp_path, libs):
-    """Where NVML lists every process as one pid (the footprint is measured
-    at the context's creation, not re-read), a process whose 16 functions
-    each take 4 MiB of the card at their first launch (lazily loaded
-    modules), and whose 4 libraries' modules take 8 MiB each at their first
-    look-up, is charged that too: each is measured under the node's lock,
-    so the region's charge follows the card's growth within 2%. Measured at
-    the context's creation alone, the 96 MiB they took ran uncharged (26%
-    of the process's memory here)."""
+def _first_launches(tmp_path, **extra):
+    """a child in context mode (NVML lists every process as one pid) whose
+    16 functions each take 4 MiB of the card at their first launch and
+    whose 4 libraries' modules take 8 MiB each at their first look-up,
+    beside this test process listed with 100 MiB: its report, its slot's
+    charge and the region's, and the card's view of its memory"""
     env, cache = child_env(tmp_path, MOCK_CUDA_CTX_BYTES="200m",
                            MOCK_CUDA_FUNC_BYTES="4m",
                            MOCK_CUDA_MODULE_BYTES="8m",
                            MOCK_GPU_PROCS_SHARED=1,
-                           **{api.ENV_DEVICE_MEMORY_LIMIT: "1g"})
+                           **{api.ENV_DEVICE_MEMORY_LIMIT: "1g"}, **extra)
     # this test process as another process of the card, listed already
     mine = os.path.join(env["MOCK_GPU_PROCS"], str(os.getpid()))
     _hold(mine, 100 * MiB)
@@ -686,6 +683,21 @@ def test_memory_taken_at_first_launches_is_charged(tmp_path, libs):
             proc.kill()
             proc.wait(timeout=30)
         os.unlink(mine)
+    with RegionView(cache) as view:
+        assert view.procs() == [] and view.used(0) == 0
+    return got, held, total, card
+
+
+def test_memory_taken_at_first_launches_is_charged(tmp_path, libs):
+    """Where NVML lists every process as one pid (the footprint is measured
+    at the context's creation, not re-read), a process whose 16 functions
+    each take 4 MiB of the card at their first launch (lazily loaded
+    modules), and whose 4 libraries' modules take 8 MiB each at their first
+    look-up, is charged that too: each is measured under the node's lock,
+    so the region's charge follows the card's growth within 2%. Measured at
+    the context's creation alone, the 96 MiB they took ran uncharged (26%
+    of the process's memory here)."""
+    got, held, total, card = _first_launches(tmp_path)
     assert got["footprint"][0] == 3, got["footprint"]  # context mode
     assert card == 200 * MiB + 64 * MiB + 16 * 4 * MiB + 4 * 8 * MiB
     assert abs(held - card) <= 0.02 * card, (held, card)
@@ -698,8 +710,29 @@ def test_memory_taken_at_first_launches_is_charged(tmp_path, libs):
         (20, 64 * MiB, 32 * MiB, 0)
     assert got["footprint"][2] == 200 * MiB + 64 * MiB + 32 * MiB
     assert got["info"][0] == 1024 * MiB - held
-    with RegionView(cache) as view:
-        assert view.procs() == [] and view.used(0) == 0
+
+
+def test_a_probe_outside_the_process_list_is_not_charged(tmp_path, libs):
+    """The same process while a process NVML lists nowhere (a host's probe
+    that makes a context for a moment: ~0.5 GB for ~110 ms every 120 s on
+    the H100 host, PERF.md) takes 64 MiB more of the card at each of its
+    first launches. The first launches are measured on the listed
+    processes' memory, so the charge is the same as without the probe; on
+    the card's used memory it held the probe's 1 GiB too, and the pod was
+    refused memory it never took."""
+    probe = tmp_path / "unlisted"
+    got, held, total, card = _first_launches(
+        tmp_path, MOCK_NVML_UNLISTED=str(probe),
+        MOCK_CUDA_UNLISTED_AT_LOAD="64m")
+    assert int(probe.read_text()) == 16 * 64 * MiB  # the probe grew
+    assert got["footprint"][0] == 3, got["footprint"]
+    assert card == 200 * MiB + 64 * MiB + 16 * 4 * MiB + 4 * 8 * MiB
+    assert abs(held - card) <= 0.02 * card, (held, card)
+    assert held == total
+    measured, at_load, at_launch, shrank = got["first_launches"][:4]
+    assert (measured, at_load, at_launch, shrank) == \
+        (20, 64 * MiB, 32 * MiB, 0)
+    assert got["footprint"][2] == 200 * MiB + 64 * MiB + 32 * MiB
 
 
 @pytest.mark.parametrize("then", ["host_bound", "device_bound"])
@@ -713,8 +746,11 @@ def test_host_bound_pod_is_charged_its_device_time(tmp_path, libs, then):
     the recent samples' fraction. Charged as whole spans, the host's gaps
     were charged too (about 2.5x). A pod that turns device-bound after
     that (kernels back to back) is charged its busy time too: the recent
-    samples, not the host-bound phase's, set its fraction."""
-    charged, spans = _hostbound_charge(tmp_path, then)
+    samples, not the host-bound phase's, set its fraction. Its host's
+    delays are what it measures, so it runs beside no pinned core and no
+    busy native harness (tests/torch_timing.py)."""
+    with timed():
+        charged, spans = _hostbound_charge(tmp_path, then)
     samples, busy_millionths = spans
     assert 0.8 <= charged <= 1.1, (charged, spans)
     assert samples >= 5, spans
@@ -750,7 +786,7 @@ def test_a_drained_stream_on_a_shared_core_is_charged_its_busy_time(
     0.908-1.043x. The pinned window holds tests/torch_timing.py's lock, so
     no timed test of another worker runs beside it."""
     core = max(os.sched_getaffinity(0))
-    with pinned_core():
+    with exclusive():
         spinners = [subprocess.Popen(
             [sys.executable, "-c", "while True: pass"]) for _ in range(3)]
         try:

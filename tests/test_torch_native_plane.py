@@ -1,0 +1,235 @@
+"""libvgpu.so's native test plane on the CPU: the port's C harnesses
+(``vtpu_torch/csrc/test/``), each built plain, with ASan+UBSan and with
+ThreadSanitizer by :mod:`vtpu_torch.native` (``_build/``, ``_build/san/``,
+``_build/tsan/``), and the JAX package's own (``lib/vtpu/test/``, built by
+``make -C lib/vtpu all`` as tests/test_native.py builds them) in the same
+region modes.
+
+- ``region_test``: the shared region under forked and threaded writers,
+  mode by mode, and the port's ``notebatch`` (8 threads publish batches
+  into one region, every count arrives exactly);
+- ``region_stress``: 8 threads x 5,000 alloc/free/launch/complete/debit,
+  the balance back at zero;
+- ``interposer_test``: libvgpu.so dlopen()ed with RTLD_LOCAL over the mock
+  libcuda.so.1 and libnvidia-ml.so.1: the default sequence, ``churn`` at
+  ``CUDA_DEVICE_SM_LIMIT=50`` and with no limit (8 threads; at quiesce the
+  region holds the footprint charge exactly, lock-free and locked sums
+  agree, the host ledger is 0, no table drop, nothing in flight, every
+  span's charge in the region, every call in the profile; while they run
+  the footprint charge is the context's at every re-read, F12),
+  ``tabledrop`` and ``hostquota``.
+
+A sanitizer's report fails the run (``halt_on_error``; no suppressions:
+none is needed). Then the profile's overhead gate
+(``vtpu_torch.bench.prof.run_overhead``) on this host's CPU and the mock
+driver, at most 1% and a hook under 200 ns, as tests/test_shim_profile.py
+holds the JAX shim, with the JAX figure printed beside it.
+"""
+
+import fcntl
+import importlib.util
+import json
+import os
+import subprocess
+import tempfile
+
+import pytest
+
+from tests import torch_timing
+from vtpu_torch import native
+from vtpu_torch.bench import prof
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+LIB_VTPU = os.path.join(REPO, "lib", "vtpu")
+JAX_BUILD = os.path.join(LIB_VTPU, "build")
+
+VARIANTS = ["plain", "san", "tsan"]
+REGION_MODES = ["", "prof", "gatestress", "resizestress", "hostledger"]
+PORT_REGION_MODES = REGION_MODES + ["notebatch"]
+INTERPOSER_MODES = [(), ("churn", "50"), ("churn",), ("tabledrop",),
+                    ("hostquota",)]
+SANITIZER_REPORTS = ("ERROR: AddressSanitizer", "ERROR: LeakSanitizer",
+                     "WARNING: ThreadSanitizer", "runtime error:")
+
+
+@pytest.fixture(scope="module")
+def sets():
+    """every set built: variant -> target -> path (the builds keep every
+    core busy, so no timed test runs meanwhile)"""
+    with torch_timing.exclusive():
+        return {"plain": native.build_all(), "san": native.sanitized("san"),
+                "tsan": native.sanitized("tsan")}
+
+
+@pytest.fixture(scope="module")
+def jax_build():
+    """``make -C lib/vtpu all`` once for all test workers (the lock
+    tests/test_torch_plugin.py takes)"""
+    lock_path = os.path.join(tempfile.gettempdir(), "vtpu-lib-build.lock")
+    with open(lock_path, "w") as lock, torch_timing.exclusive():
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        proc = subprocess.run(["make", "-s", "-C", LIB_VTPU, "all"],
+                              capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr
+    return JAX_BUILD
+
+
+def plane_env(tmp_path, libs: dict) -> dict:
+    """The harnesses' env: the set's mock driver and NVML on the library
+    path, its libvgpu.so named, temp files under tmp_path, nothing of a
+    pod's env inherited, the sanitizers halting at their first report."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("CUDA_", "LD_PRELOAD", "MOCK_", "VGPU_",
+                                "VTPU_PROFILE", "LIBCUDA_", "ASAN_",
+                                "TSAN_", "UBSAN_", "LSAN_"))}
+    env.update({
+        "TMPDIR": str(tmp_path),
+        "LD_LIBRARY_PATH": os.pathsep.join([
+            os.path.dirname(libs[os.path.join("mock_cuda", "libcuda.so.1")]),
+            os.path.dirname(
+                libs[os.path.join("mock_nvml", "libnvidia-ml.so.1")])]),
+        "LIBVGPU_SO": libs["libvgpu.so"],
+        "ASAN_OPTIONS": "halt_on_error=1:detect_leaks=1",
+        "UBSAN_OPTIONS": "halt_on_error=1:print_stacktrace=1",
+        "TSAN_OPTIONS": "halt_on_error=1:second_deadlock_stack=1",
+    })
+    return env
+
+
+def run(binary: str, args, env: dict) -> str:
+    """the harness's output; it must pass with no sanitizer report (its 8
+    threads keep the host's cores busy: no timed test runs meanwhile)"""
+    with torch_timing.exclusive():
+        proc = subprocess.run([binary, *args], env=env, capture_output=True,
+                              text=True, timeout=300)
+    assert proc.returncode == 0, (
+        f"{os.path.basename(binary)} {' '.join(args)}: rc "
+        f"{proc.returncode}\n{proc.stdout}\n{proc.stderr[-6000:]}")
+    for report in SANITIZER_REPORTS:
+        assert report not in proc.stderr, proc.stderr[-6000:]
+    return proc.stdout
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("mode", PORT_REGION_MODES,
+                         ids=lambda m: m or "default")
+def test_port_region_mode(sets, tmp_path, variant, mode):
+    """The port's region_test, each mode plain and under each sanitizer."""
+    libs = sets[variant]
+    out = run(libs[os.path.join("test", "region_test")],
+              [mode] if mode else [], plane_env(tmp_path, libs))
+    want = f"region_test {mode} OK" if mode else "region_test OK"
+    assert want in out, out
+
+
+@pytest.mark.parametrize("mode", REGION_MODES, ids=lambda m: m or "default")
+def test_jax_region_mode(jax_build, tmp_path, mode):
+    """The reference's region_test in the same modes: both packages hold
+    the region to one invariant."""
+    env = {k: v for k, v in os.environ.items() if k != "LD_PRELOAD"}
+    out = run(os.path.join(jax_build, "region_test"),
+              [mode] if mode else [], env)
+    want = f"region_test {mode} OK" if mode else "region_test OK"
+    assert want in out, out
+
+
+@pytest.mark.parametrize("package,variant", [
+    ("port", "plain"), ("port", "san"), ("port", "tsan"), ("jax", "plain")])
+def test_region_stress(sets, jax_build, tmp_path, package, variant):
+    """8 threads x 5,000 iterations on one region, the balance back at 0:
+    the port's in each set, the reference's as tests/test_native.py builds
+    it."""
+    libs = sets[variant]
+    binary = (os.path.join(jax_build, "region_stress") if package == "jax"
+              else libs[os.path.join("test", "region_stress")])
+    out = run(binary, [], plane_env(tmp_path, libs))
+    assert "region_stress OK (8 threads x 5000 iters)" in out, out
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("args", INTERPOSER_MODES,
+                         ids=lambda a: "-".join(a) or "default")
+def test_interposer_mode(sets, tmp_path, variant, args):
+    """libvgpu.so from many threads on the mock driver, each mode plain
+    and under each sanitizer; its temp files go under TMPDIR, never the
+    node's lock dir, and are removed."""
+    libs = sets[variant]
+    out = run(libs[os.path.join("test", "interposer_test")], list(args),
+              plane_env(tmp_path, libs))
+    mode = args[0] if args else ""
+    want = f"interposer_test {mode} OK" if mode else "interposer_test OK"
+    assert want in out, out
+    if mode == "churn":
+        assert ("no SM limit" in out) == (len(args) == 1), out
+    assert not os.listdir(tmp_path), os.listdir(tmp_path)
+
+
+def test_sanitized_sets_never_shadow_the_plain_one(sets):
+    """Each set lies in a directory of its own, and only the sanitized
+    ones carry their runtime."""
+    for variant, libs in sets.items():
+        for target, path in libs.items():
+            want = os.path.join(native.BUILD, "" if variant == "plain"
+                                else variant, target)
+            assert path == os.path.normpath(want), (variant, target)
+    with open(sets["plain"]["libvgpu.so"], "rb") as f:
+        plain = f.read()
+    with open(sets["san"]["libvgpu.so"], "rb") as f:
+        assert b"__asan_" in f.read() and b"__asan_" not in plain
+    with open(sets["tsan"]["libvgpu.so"], "rb") as f:
+        assert b"__tsan_" in f.read() and b"__tsan_" not in plain
+    with pytest.raises(ValueError):
+        native.sanitized("msan")
+
+
+def _vtpuprof():
+    spec = importlib.util.spec_from_file_location(
+        "vtpuprof_ref", os.path.join(REPO, "hack", "vtpuprof.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_profiling_overhead_gate(sets, jax_build):
+    """The profile's cost on every charge-path event is at most 1% of the
+    deployed charge path (cuMemAlloc_v2 + cuMemFree_v2 through libvgpu.so
+    over the mock driver), decomposed, the best of 3 runs of min-of-attempt
+    benches, with the hook's unit cost under 200 ns: the bounds of
+    tests/test_shim_profile.py. Held beside no pinned busy core. Its JSON
+    has the reference's keys; the reference's figure is printed beside it,
+    not compared (another shim, another mock)."""
+    best = None
+    with torch_timing.timed():
+        for _ in range(3):
+            res = prof.run_overhead()
+            best = res if best is None else min(
+                best, res, key=lambda r: r["gated_overhead_pct"])
+            if best["pass"]:
+                break
+        ref = _vtpuprof().run_overhead(build_first=False)
+    print(f"port (CPU host, mock driver): {json.dumps(best)}")
+    print(f"JAX shim (CPU host, mock PJRT): {json.dumps(ref)}")
+    assert set(best) == set(ref)
+    assert set(best["shim_charge_path"]) >= set(ref["shim_charge_path"]) - {
+        "metric"}
+    assert set(best["core_charge_path"]) == set(ref["core_charge_path"])
+    assert best["budget_pct"] == 1.0
+    assert best["pass"], (
+        f"profiling overhead {best['gated_overhead_pct']:.3f}% exceeds "
+        f"the {best['budget_pct']}% budget: {json.dumps(best)}")
+    unit = best["shim_charge_path"]["prof_event_ns"]
+    assert unit < 200.0, f"profile hook unit cost {unit} ns"
+
+
+def test_overhead_cli(sets, capsys):
+    """``python -m vtpu_torch.bench.prof --overhead``: the verdict, labelled
+    as this host's CPU over the mock driver, and the JSON form."""
+    with torch_timing.timed():
+        rc = prof.main(["--overhead"])
+    out = capsys.readouterr().out
+    assert "CPU host" in out and "mock driver" in out, out
+    assert ("PASS" in out) == (rc == 0), out
+    with torch_timing.timed():
+        prof.main(["--overhead", "--json"])
+    data = json.loads(capsys.readouterr().out)
+    assert data["budget_pct"] == prof.OVERHEAD_BUDGET_PCT

@@ -3,8 +3,10 @@
 ctypes (as tests/test_torch_faults.py does) and the region shows exactly
 its calls, class by class: BUF_ALLOC and BUF_FREE around the allocation
 hooks, EXECUTE around the launch hooks with QUOTA_CHECK inside it, CHARGE
-and UNCHARGE from the region's primitives, TRANSFER and DONE_WITH_BUFFER
-empty (no hook reaches a copy or a completion callback).
+and UNCHARGE from the region's primitives, TRANSFER around every copy entry
+point (each variant, its bytes, its errors; nothing charged) and
+DONE_WITH_BUFFER for each bracket (at an SM limit) or span (with none) of
+launches charged to the device.
 
 The region is read three ways and they must agree: the port's reader
 (``vtpu_torch.bench.prof``), the JAX package's ``RegionView`` and
@@ -37,11 +39,36 @@ vtpuprof = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(vtpuprof)
 
 # N allocations of SIZE, one of OVER past the quota, the N frees, M
-# launches
+# launches (each followed by a synchronisation), N copies through each
+# hooked copy entry point and one refused by the driver
 N, M, SIZE, OVER, QUOTA = 5, 40, 8 * MiB, 32 * MiB, "64m"
 
+# the copy entry points: (base name, per-thread stream variant, exact
+# symbol, shape); a shape's bytes are COPY_BYTES'
+COPIES = [(base, ptds, sym, shape)
+          for base, v2, shape in [
+              ("cuMemcpy", "", "linear"), ("cuMemcpyAsync", "", "linear"),
+              ("cuMemcpyHtoD", "_v2", "linear"),
+              ("cuMemcpyDtoH", "_v2", "linear"),
+              ("cuMemcpyDtoD", "_v2", "linear"),
+              ("cuMemcpyHtoDAsync", "_v2", "linear"),
+              ("cuMemcpyDtoHAsync", "_v2", "linear"),
+              ("cuMemcpyDtoDAsync", "_v2", "linear"),
+              ("cuMemcpy2D", "_v2", "2d"),
+              ("cuMemcpy2DUnaligned", "_v2", "2d"),
+              ("cuMemcpy2DAsync", "_v2", "2d"), ("cuMemcpy3D", "_v2", "3d"),
+              ("cuMemcpy3DAsync", "_v2", "3d"),
+              ("cuMemcpyPeer", "", "linear"),
+              ("cuMemcpyPeerAsync", "", "linear"),
+              ("cuMemcpy3DPeer", "", "3d"),
+              ("cuMemcpy3DPeerAsync", "", "3d")]
+          for ptds, sym in [
+              (0, base + v2),
+              (1, base + v2 + ("_ptsz" if "Async" in base else "_ptds"))]]
+COPY_BYTES = {"linear": 4096, "2d": 256 * 4, "3d": 64 * 4 * 2}
+
 CHILD = textwrap.dedent(r"""
-    import ctypes, sys
+    import ctypes, json, os, sys
     from ctypes import (CFUNCTYPE, POINTER, byref, c_char_p, c_int,
                         c_size_t, c_uint, c_uint64, c_ulonglong, c_void_p)
 
@@ -54,6 +81,12 @@ CHILD = textwrap.dedent(r"""
         p, st = c_void_p(), c_int(-1)
         rc = gpa2(base.encode(), byref(p), 12080, 0, byref(st))
         assert rc == 0 and st.value == 0, (base, rc, st.value)
+        return p.value
+
+    def via(base, flags):
+        p, st = c_void_p(), c_int(-1)
+        rc = gpa2(base.encode(), byref(p), 12080, flags, byref(st))
+        assert rc == 0 and st.value == 0, (base, flags, rc, st.value)
         return p.value
 
     alloc = CFUNCTYPE(c_int, POINTER(c_ulonglong), c_size_t)(
@@ -106,17 +139,77 @@ CHILD = textwrap.dedent(r"""
             assert launch_ex(byref(config), None, None, None) == 0
         assert sync(None) == 0
         sys.exit(0)
+    vg = ctypes.CDLL(os.environ["LD_PRELOAD"])
+    if sys.argv[1] == "bracket":  # launches at an SM limit, then a flush
+        for _ in range(int(sys.argv[2])):
+            assert launch(None, 1, 1, 1, 1, 1, 1, 0, None, None, None) == 0
+        vg.vgpu_flush_launches()
+        sys.exit(0)
     n, m, size, over = map(int, sys.argv[1:5])
+    copies = json.loads(sys.argv[5])
     held, p = [], c_ulonglong()
     for _ in range(n):
         assert alloc(byref(p), size) == 0
         held.append(p.value)
     assert alloc(byref(p), over) == 2  # CUDA_ERROR_OUT_OF_MEMORY
+
+    class Copy2D(ctypes.Structure):  # CUDA_MEMCPY2D
+        _fields_ = [("srcX", c_size_t), ("srcY", c_size_t),
+                    ("srcType", c_int), ("srcHost", c_void_p),
+                    ("srcDevice", c_ulonglong), ("srcArray", c_void_p),
+                    ("srcPitch", c_size_t), ("dstX", c_size_t),
+                    ("dstY", c_size_t), ("dstType", c_int),
+                    ("dstHost", c_void_p), ("dstDevice", c_ulonglong),
+                    ("dstArray", c_void_p), ("dstPitch", c_size_t),
+                    ("width", c_size_t), ("height", c_size_t)]
+
+    class Copy3D(ctypes.Structure):  # CUDA_MEMCPY3D, CUDA_MEMCPY3D_PEER
+        _fields_ = [("srcX", c_size_t), ("srcY", c_size_t),
+                    ("srcZ", c_size_t), ("srcLOD", c_size_t),
+                    ("srcType", c_int), ("srcHost", c_void_p),
+                    ("srcDevice", c_ulonglong), ("srcArray", c_void_p),
+                    ("srcCtx", c_void_p), ("srcPitch", c_size_t),
+                    ("srcHeight", c_size_t), ("dstX", c_size_t),
+                    ("dstY", c_size_t), ("dstZ", c_size_t),
+                    ("dstLOD", c_size_t), ("dstType", c_int),
+                    ("dstHost", c_void_p), ("dstDevice", c_ulonglong),
+                    ("dstArray", c_void_p), ("dstCtx", c_void_p),
+                    ("dstPitch", c_size_t), ("dstHeight", c_size_t),
+                    ("width", c_size_t), ("height", c_size_t),
+                    ("depth", c_size_t)]
+
+    host = ctypes.create_string_buffer(size)
+    dev, ctx = held[0], c_void_p(0x100)
+    u64 = c_ulonglong
+    shapes = {"linear": [u64, u64, c_size_t], "2d": [POINTER(Copy2D)],
+              "3d": [POINTER(Copy3D)]}
+    c2d = Copy2D(width=256, height=4, srcDevice=dev, dstDevice=dev)
+    c3d = Copy3D(width=64, height=4, depth=2, srcDevice=dev, dstDevice=dev)
+    for base, ptds, sym, shape in copies:
+        argt = list(shapes[shape])
+        if "Peer" in base and shape == "linear":
+            argt = [u64, c_void_p, u64, c_void_p, c_size_t]
+        if "Async" in base:
+            argt.append(c_void_p)
+        fn = CFUNCTYPE(c_int, *argt)(via(base, 2 if ptds else 0))
+        args = {"linear": [dev, dev, 4096], "2d": [byref(c2d)],
+                "3d": [byref(c3d)]}[shape]
+        if "Peer" in base and shape == "linear":
+            args = [dev, ctx, dev, ctx, 4096]
+        if "HtoD" in base:
+            args = [dev, ctypes.addressof(host), 4096]
+        elif "DtoH" in base:
+            args = [ctypes.addressof(host), dev, 4096]
+        for _ in range(n):
+            assert fn(*args, *([None] if "Async" in base else [])) == 0
+        assert cu.mock_cuda_copy_calls(sym.encode()) == n, sym
+    htod = CFUNCTYPE(c_int, u64, c_void_p, c_size_t)(via2("cuMemcpyHtoD"))
+    assert htod(dev, None, 4096) == 1  # CUDA_ERROR_INVALID_VALUE
     for h in held:
         assert free(h) == 0
     for _ in range(m):
         assert launch(None, 1, 1, 1, 1, 1, 1, 0, None, None, None) == 0
-    assert sync(None) == 0
+        assert sync(None) == 0
 """)
 
 
@@ -146,9 +239,10 @@ def jax_reads_with_its_own_lib(jax_core, monkeypatch):
 
 def run_child(env: dict, *args) -> None:
     """The ctypes child under ``env`` (libvgpu.so preloaded, the mock
-    driver on the library path): N allocations, one refused, N frees and M
-    launches, or ``args``' mode."""
-    args = args or (N, M, SIZE, OVER)
+    driver on the library path): N allocations, one refused, N copies
+    through each copy entry point and one refused, N frees and M launches
+    each followed by a synchronisation, or ``args``' mode."""
+    args = args or (N, M, SIZE, OVER, json.dumps(COPIES))
     proc = subprocess.run([sys.executable, "-c", CHILD, *map(str, args)],
                           env=env, capture_output=True, text=True,
                           timeout=120)
@@ -185,8 +279,11 @@ WANT = {
     "charge": (N + 1, 1, N * SIZE),
     "uncharge": (N, 0, N * SIZE),
     "execute": (M, 0, 0),
-    "transfer": (0, 0, 0),
-    "done_with_buffer": (0, 0, 0),
+    # N of each copy entry point with its bytes, and the one refused
+    "transfer": (N * len(COPIES) + 1, 1,
+                 N * sum(COPY_BYTES[c[3]] for c in COPIES)),
+    # each launch's span, charged at the synchronisation after it
+    "done_with_buffer": (M, 0, 0),
     "quota_check": (M, 0, 0),
 }
 
@@ -236,6 +333,26 @@ def test_each_entry_point_is_noted(tmp_path, libs):
     assert got["execute"].sampled == 4
     with RegionView(cache) as view:
         assert view.total_launches() == 4
+
+
+@pytest.mark.parametrize("launches", [1, 7])
+def test_each_charged_bracket_is_noted_once(tmp_path, libs, launches):
+    """At an SM limit each launch's bracket is charged once its stream has
+    drained (the mock's kernels take no time): at the next launch, the
+    last at the flush. One DONE_WITH_BUFFER each, no error, no table
+    drop."""
+    env, cache = child_env(tmp_path, **{api.ENV_PROFILE: 1,
+                                        api.ENV_PROFILE_SAMPLE: 1,
+                                        api.ENV_SM_LIMIT: 50})
+    run_child(env, "bracket", launches)
+    got = cells(cache)
+    assert (got["done_with_buffer"].calls,
+            got["done_with_buffer"].errors) == (launches, 0)
+    assert got["execute"].calls == launches
+    assert got["transfer"].calls == 0
+    with RegionView(cache) as view:
+        assert view.pressure()["table_drops"] == 0
+        assert view.total_launches() == launches
 
 
 def test_profile_off_leaves_every_cell_zero(tmp_path, libs):

@@ -7,8 +7,10 @@ time slices. A timed child of tests/test_torch_throttle.py (another test
 worker under ``pytest -n``) that woke on that core waited behind them: a
 1 ms execute of the JAX shim was charged 1.25-1.27x (bound 1.25) beside
 three such processes. The pinned window takes the lock exclusively, each
-throttle test shares it, so the two never overlap. The lock file lies in
-the temp dir every test worker shares.
+throttle test shares it, so the two never overlap. So do the native test
+plane's threaded harnesses (tests/test_torch_native_plane.py), which keep
+every core busy for seconds, and their builds. The lock file lies in the
+temp dir every test worker shares.
 """
 
 from __future__ import annotations
@@ -31,8 +33,9 @@ def _locked(mode):
             fcntl.flock(f, fcntl.LOCK_UN)
 
 
-def pinned_core():
-    """held while busy processes are pinned to a core"""
+def exclusive():
+    """held while busy processes are pinned to a core, or while a test keeps
+    many cores busy"""
     return _locked(fcntl.LOCK_EX)
 
 

@@ -4,10 +4,11 @@ hack/vtpuprof.py's reader).
 libvgpu.so records per-callsite latency histograms, exact call, error and
 byte counters and quota-pressure signals into every region's profile block
 (vtpu_torch/csrc/shared_region.h): BUF_ALLOC and BUF_FREE around its
-allocation and free hooks, EXECUTE around its launch hooks with the
-admission (gate, feedback block, SM bucket) as QUOTA_CHECK inside it, and
-CHARGE/UNCHARGE in the region's own primitives. This tool turns them into
-the per-callsite table:
+allocation and free hooks, TRANSFER around its copy hooks, EXECUTE around
+its launch hooks with the admission (gate, feedback block, SM bucket) as
+QUOTA_CHECK inside it, DONE_WITH_BUFFER for each finished bracket or span
+of launches it charges, and CHARGE/UNCHARGE in the region's own
+primitives. This tool turns them into the per-callsite table:
 
     callsite      calls  err   p50(us)  p99(us)  est total(ms)  share
     execute        9120    0      1.1      4.2          11.20   61.3%
@@ -21,8 +22,14 @@ node-local (default): aggregate every readable region under one or more
     plugin's host containers dir, ``vtpu_torch.api.HOST_CONTAINERS_DIR``).
 fleet (``--scrape URL[,URL...]``): GET each monitor's /nodeinfo endpoint
     and aggregate the ``profile`` summaries it publishes.
+overhead (``--overhead``): the profile's own cost, on this host's CPU over
+    the mock driver (hack/vtpuprof.py's A/B): the native test plane's
+    ``profbench`` modes, ``region_test`` (the region's charge pair) and
+    ``interposer_test`` (cuMemAlloc_v2 + cuMemFree_v2 through libvgpu.so,
+    with the hooks' unit cost decomposed), gated at OVERHEAD_BUDGET_PCT.
 
     python -m vtpu_torch.bench.prof <containers dir> [--json] [--baseline F]
+    python -m vtpu_torch.bench.prof --overhead [--json]
 
 ``python -m vtpu_torch.bench --profile`` drives the bench cases through
 libvgpu.so and reads their regions with this module.
@@ -33,10 +40,11 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import subprocess
 import sys
 from typing import Dict, Iterable, List, Optional, Tuple
 
-from .. import api
+from .. import api, native
 from ..enforce.region import (
     PROF_CALLSITE_NAMES,
     PROF_PRESSURE_NAMES,
@@ -371,6 +379,76 @@ def top_cost_centers(agg: dict, n: int = 2) -> List[str]:
 
 
 # ---------------------------------------------------------------------------
+# overhead A/B (the native test plane's profbench modes)
+# ---------------------------------------------------------------------------
+
+#: the profile's cost on the deployed charge path, at most (the reference's
+#: budget, hack/vtpuprof.py)
+OVERHEAD_BUDGET_PCT = 1.0
+
+
+def _run_profbench(binary: str, env: Optional[dict] = None) -> dict:
+    """The JSON line of ``binary profbench`` (a program of the native test
+    plane, built first when stale)."""
+    path = native.build(os.path.join("test", binary))
+    r = subprocess.run([path, "profbench"], capture_output=True, text=True,
+                       env=env, timeout=600)
+    if r.returncode != 0:
+        raise RuntimeError(f"{binary} profbench failed:\n"
+                           f"{r.stdout}{r.stderr}")
+    for line in r.stdout.splitlines():
+        line = line.strip()
+        if line.startswith("{"):
+            return json.loads(line)
+    raise RuntimeError(f"{binary} profbench printed no JSON:\n{r.stdout}")
+
+
+def run_overhead() -> dict:
+    """Both profiling-cost A/Bs on this CPU host, libvgpu.so's over the
+    mock driver; their JSON with a verdict against OVERHEAD_BUDGET_PCT, under
+    the keys of hack/vtpuprof.py's run_overhead."""
+    core = _run_profbench("region_test")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("CUDA_", "LD_PRELOAD", "MOCK_", "VGPU_",
+                                "VTPU_PROFILE", "LIBCUDA_"))}
+    env["LD_LIBRARY_PATH"] = native.mock_cuda_dir()
+    env["LIBVGPU_SO"] = native.interposer()
+    shim = _run_profbench("interposer_test", env=env)
+    gated = float(shim["decomposed_overhead_pct"])
+    return {
+        "core_charge_path": core,
+        "shim_charge_path": shim,
+        "gated_overhead_pct": gated,
+        "budget_pct": OVERHEAD_BUDGET_PCT,
+        "pass": gated <= OVERHEAD_BUDGET_PCT,
+    }
+
+
+def _print_overhead(res: dict) -> None:
+    c, s = res["core_charge_path"], res["shim_charge_path"]
+    print("the profile's cost on this CPU host, libvgpu.so over the mock "
+          "driver (not a GPU's figure):")
+    print(f"core charge path (try_alloc+free): "
+          f"off {c['off_ns_per_op']:.0f} ns/op, "
+          f"on {c['on_ns_per_op']:.0f} ns/op "
+          f"({c['overhead_pct']:+.2f}% wall)")
+    print(f"interposer charge path (cuMemAlloc_v2+cuMemFree_v2): "
+          f"off {s['charge_pair_off_ns']:.0f} ns, "
+          f"on {s['charge_pair_on_ns']:.0f} ns "
+          f"({s['wall_overhead_pct']:+.2f}% wall, noise-prone); "
+          f"decomposed {s['prof_event_ns']:.1f} ns/event x "
+          f"{s['events_per_pair']:.0f} events = "
+          f"{s['decomposed_overhead_pct']:.3f}%")
+    print(f"a launch: off {s['launch_off_ns']:.0f} ns, on "
+          f"{s['launch_on_ns']:.0f} ns; a 256 B copy: off "
+          f"{s['copy_off_ns']:.0f} ns, on {s['copy_on_ns']:.0f} ns, the "
+          f"driver's alone {s['copy_direct_ns']:.0f} ns")
+    verdict = "PASS" if res["pass"] else "FAIL"
+    print(f"overhead gate: {res['gated_overhead_pct']:.3f}% <= "
+          f"{res['budget_pct']}% ... {verdict}")
+
+
+# ---------------------------------------------------------------------------
 # CLI
 # ---------------------------------------------------------------------------
 
@@ -389,11 +467,24 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--per-region", action="store_true",
                     help="print one table per region before the "
                          "aggregate")
+    ap.add_argument("--overhead", action="store_true",
+                    help="run the profiling-overhead A/B on this CPU host "
+                         "(profiling on vs VTPU_PROFILE=0, libvgpu.so over "
+                         "the mock driver) and gate it at "
+                         f"<={OVERHEAD_BUDGET_PCT}%% of the charge path")
     ap.add_argument("--baseline", metavar="SAVED.json",
                     help="diff the aggregate against a previously saved "
                          "--json aggregate: per-callsite Δp50/Δp99/"
                          "Δshare in one command")
     args = ap.parse_args(argv)
+
+    if args.overhead:
+        res = run_overhead()
+        if args.json:
+            print(json.dumps(res, indent=1))
+        else:
+            _print_overhead(res)
+        return 0 if res["pass"] else 1
 
     if args.scrape:
         summaries = collect_scrape(args.scrape.split(","))

@@ -17,13 +17,22 @@ missing or older than one of its sources, and a failed build raises.
 - ``vgpu-validator``: the entitlement validator (``validator.c``), an
   executable the device plugin installs beside ``libvgpu.so`` and mounts
   into a container when the host carries a license.
+- ``test/region_test``, ``test/region_stress``, ``test/interposer_test``:
+  the native test plane (``csrc/test/``), programs that drive the shared
+  region and ``libvgpu.so`` on the mock driver from many threads.
+
+:func:`sanitized` builds the same set again (all but the validator) under
+``_build/san/`` with ASan+UBSan or ``_build/tsan/`` with ThreadSanitizer,
+``lib/vtpu/Makefile``'s ``sanitize`` and ``tsan`` rule: a set never shadows
+``_build/``, and its harnesses load its own ``libvgpu.so`` and mock driver.
 
 :func:`preload_file` also writes ``_build/ld.so.preload``, the file the
 device plugin installs on the host and mounts over a container's
 ``/etc/ld.so.preload``: one line naming the interposer's in-container path.
 
-Builds take a file lock, so concurrent processes (test workers) build each
-library once, and each output is renamed into place whole.
+Builds take a file lock per output, so concurrent processes (test workers)
+build each library once, and each output is renamed into place whole; a
+set's outputs build at once, one gcc each.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ import fcntl
 import os
 import shutil
 import subprocess
+from concurrent import futures
 from typing import Dict, List, Tuple
 
 from . import api
@@ -40,6 +50,13 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 
 CFLAGS = ["-O2", "-g", "-Wall", "-Wextra", "-fPIC", "-pthread"]
+# the sanitized sets: variant -> its compiler flags
+SANITIZERS: Dict[str, List[str]] = {
+    "san": ["-O1", "-g", "-Wall", "-Wextra", "-fPIC", "-pthread",
+            "-fsanitize=address,undefined", "-fno-sanitize-recover=all",
+            "-fno-omit-frame-pointer"],
+    "tsan": ["-O1", "-g", "-Wall", "-fPIC", "-pthread", "-fsanitize=thread"],
+}
 # bind intra-library calls locally: the interposer defines dlsym and the
 # cu* entry points, and must never reach its own exports through the PLT
 SOFLAGS = ["-shared", "-Wl,-Bsymbolic-functions"]
@@ -57,9 +74,20 @@ TARGETS: Dict[str, Tuple[List[str], List[str], List[str]]] = {
     os.path.join("mock_nvml", "libnvidia-ml.so.1"): (
         ["mock_nvml.c"], [], ["-Wl,-soname,libnvidia-ml.so.1"]),
     "vgpu-validator": (["validator.c"], [], []),
+    os.path.join("test", "region_test"): (
+        [os.path.join("test", "region_test.c"), "shared_region.c"],
+        _REGION[1:], []),
+    os.path.join("test", "region_stress"): (
+        [os.path.join("test", "region_stress.c"), "shared_region.c"],
+        _REGION[1:], []),
+    os.path.join("test", "interposer_test"): (
+        [os.path.join("test", "interposer_test.c"), "shared_region.c"],
+        _REGION[1:] + ["cuda_min.h"], ["-ldl"]),
 }
 #: targets linked as programs, not shared libraries
-EXECUTABLES = {"vgpu-validator"}
+EXECUTABLES = {"vgpu-validator", os.path.join("test", "region_test"),
+               os.path.join("test", "region_stress"),
+               os.path.join("test", "interposer_test")}
 
 
 class NativeBuildFailure(RuntimeError):
@@ -73,24 +101,29 @@ def _stale(out: str, deps: List[str]) -> bool:
     return any(os.path.getmtime(os.path.join(CSRC, d)) > built for d in deps)
 
 
-def build(target: str) -> str:
-    """Path of the built library ``target`` (a key of :data:`TARGETS`),
-    compiling it first when it is missing or stale."""
+def build(target: str, variant: str = "") -> str:
+    """Path of the built library or program ``target`` (a key of
+    :data:`TARGETS`), compiling it first when it is missing or stale; with a
+    ``variant`` of :data:`SANITIZERS`, its sanitized build under
+    ``_build/<variant>/``."""
     sources, headers, ldflags = TARGETS[target]
-    out = os.path.join(BUILD, target)
+    out = os.path.join(BUILD, variant, target)
     if not _stale(out, sources + headers):
         return out
     cc = os.environ.get("CC", "gcc")
     if shutil.which(cc) is None:
         raise NativeBuildFailure(f"{cc} not found; cannot build {target}")
     os.makedirs(os.path.dirname(out), exist_ok=True)
-    with open(os.path.join(BUILD, ".lock"), "w") as lock:
+    lock_path = os.path.join(os.path.dirname(out),
+                             f".{os.path.basename(out)}.lock")
+    with open(lock_path, "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not _stale(out, sources + headers):
             return out  # another process built it while we waited
         tmp = f"{out}.{os.getpid()}.tmp"
         link = [] if target in EXECUTABLES else SOFLAGS
-        cmd = ([cc] + CFLAGS + link + ["-o", tmp]
+        flags = SANITIZERS[variant] if variant else CFLAGS
+        cmd = ([cc] + flags + link + ["-o", tmp]
                + [os.path.join(CSRC, s) for s in sources]
                + ldflags)
         proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -148,6 +181,22 @@ def preload_file() -> str:
     return out
 
 
+def _build_set(targets: List[str], variant: str = "") -> Dict[str, str]:
+    """``targets`` built at once, one gcc each; name -> path"""
+    with futures.ThreadPoolExecutor(len(targets)) as pool:
+        done = {t: pool.submit(build, t, variant) for t in targets}
+        return {t: f.result() for t, f in done.items()}
+
+
 def build_all() -> Dict[str, str]:
     """Build every library and program; name -> path."""
-    return {t: build(t) for t in TARGETS}
+    return _build_set(list(TARGETS))
+
+
+def sanitized(variant: str) -> Dict[str, str]:
+    """The sanitized set ``variant`` (``san``: ASan+UBSan, ``tsan``:
+    ThreadSanitizer) of every library and program but the validator, built
+    under ``_build/<variant>/``; name -> path."""
+    if variant not in SANITIZERS:
+        raise ValueError(f"no sanitized set {variant!r}")
+    return _build_set([t for t in TARGETS if t != "vgpu-validator"], variant)
