@@ -258,6 +258,22 @@ built:
    the region's charge at least both replicas and under the quota. The
    request latency p50/p99, requests/s, mean batch and step ms are
    printed with the card's name and power limit;
+11bb. phase (q), the memory-space probe (``vtpu_torch.bench.memspace``,
+   the port of hack/memspace_probe.py), alone on the card after (p): its
+   child, started ahead and held, runs under ``libvgpu.so`` with a 4 GiB
+   device quota and a 1 GiB host limit and places 64 MiB (16 Mi f32) in
+   device memory, pinned host memory (``pin_memory=True``), pageable host
+   memory, registered host memory (``cudaHostRegister``) and managed
+   memory (``cuMemAllocManaged`` through ``cuGetProcAddress_v2``). Gates,
+   exact: the device placement charged its bytes; the pinned, pageable and
+   registered ones 0 B of the device quota (the charge less the footprint
+   charge, after a warm-up); pinned and registered charged their bytes to
+   the host ledger, pageable 0 B; a pinned allocation past the host limit
+   refused; managed memory charged to the device quota and an allocation
+   past the quota refused with CUDA_ERROR_OUT_OF_MEMORY; every charge back
+   to 0 after the frees; the region clean after the child exits. The
+   in-device touch and the copies (CUDA events, median of 20) printed
+   beside their bounds (HBM3 3.35 TB/s, PCIe Gen5 x16 64 GB/s), not gated;
 11c. phase (n), the scheduler at cluster scale: ``python -m
    vtpu_torch.scheduler.loadtest`` in a child that imports no torch runs
    the port's scheduler daemon on an in-memory apiserver of 1,024 nodes x
@@ -281,7 +297,16 @@ built:
    quota is refused, every pod's leakage is under 2% by the card's drop at
    its exit, the leakage is cross-checked, the headroom canary's
    under-count is under 2% of the quotas, and ``tight_met`` holds; the
-   phase prints its time;
+   phase prints its time. Once (n) has ended, the control plane's host
+   harnesses run one after another beside (l), each a short process that
+   imports no torch (``python -m vtpu_torch.bench.sched --smoke``,
+   ``vtpu_torch.bench.monitor --smoke``, ``vtpu_torch.bench.soak``'s four
+   legs at the JAX smoke tests' arguments, the elastic and migrate legs
+   with ``--waves``). Gates: each exits 0 with its result's gates held
+   (overlay drift and double-booked cards 0, the monitor's steady-state
+   LIST count 0), no torch, jax or vtpu module loaded, and none of their
+   processes holding a device file or a CUDA library, (n)'s check beside
+   (l);
 13. phase (m), the bench (``python -m vtpu_torch.bench``, each mode a
    command as a user runs it, from a temp dir): the default mode (case
    1.1 at batch 50) within 0.9-1.1x phase (b)'s img/s alone, its MFU in
@@ -331,6 +356,7 @@ sys.path.insert(0, ROOT)
 import torch  # noqa: E402
 
 from vtpu_torch import api, native  # noqa: E402
+from vtpu_torch.bench import memspace  # noqa: E402
 from vtpu_torch.enforce import install  # noqa: E402
 from vtpu_torch.enforce.region import (  # noqa: E402
     FEEDBACK_BLOCK,
@@ -3639,6 +3665,69 @@ def serving_phase(name: str, children: dict) -> list:
              "took_s": p2_s, "phase_s": took}]
 
 
+# --------------------------------------------- (q) the memory-space probe.
+class ProbeChild:
+    """Phase (q)'s child (vtpu_torch.bench.memspace), started ahead of its
+    turn and held before its first CUDA call."""
+
+    def __init__(self):
+        self.tmp = tempfile.mkdtemp(prefix="vgpu-smoke-memspace-")
+        self.probe = memspace.Probe(self.tmp, hold=True,
+                                    lock_dir=run_lock_dir())
+        self.proc = self.probe.proc
+        _HELD.append(self)
+
+
+def memspace_phase(name: str, child: ProbeChild) -> dict:
+    """Phase (q): the probe alone on the card, every gate of
+    vtpu_torch.bench.memspace exact, its timings beside their bounds."""
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    child.probe.go()
+    res = child.probe.finish()
+    shutil.rmtree(child.tmp, ignore_errors=True)
+    check("error" not in res, f"(q) the probe's child gave no result, rc "
+          f"{res.get('rc')}:\n{res.get('error')}")
+    b = res["placement_bytes"]
+    print(f"(q) memory kinds {res['memory_kinds']}; {b} B placed in each "
+          f"under a {res['quota_bytes']} B device quota and a "
+          f"{res['host_limit_bytes']} B host limit (footprint mode "
+          f"{res['footprint_mode']}): device charge device "
+          f"{res['shim_used_device_bytes']} B, pinned "
+          f"{res['pinned_host_device_bytes']} B, pageable "
+          f"{res['unpinned_host_device_bytes']} B, registered "
+          f"{res['registered_host_device_bytes']} B, managed "
+          f"{res['managed_device_bytes']} B (its entry point hooked "
+          f"{res['managed_hooked']}); host ledger pinned "
+          f"{res['pinned_host_ledger_bytes']} B, pageable "
+          f"{res['unpinned_host_ledger_bytes']} B, registered "
+          f"{res['registered_host_ledger_bytes']} B, managed "
+          f"{res['managed_ledger_bytes']} B; pinned past the host limit: "
+          f"{res['pinned_past_host_limit']}; managed past the quota: rc "
+          f"{res['managed_past_quota_rc']}; after the frees device "
+          f"{res['device_bytes_after_free']} B, host "
+          f"{res['host_ledger_bytes_after_free']} B; region clean after "
+          f"exit {res['region_clean_after_exit']}; on {name}", flush=True)
+    for key, bound in (("in_hbm_touch_s", "in_hbm_touch_bound_s"),
+                       ("host_to_hbm_64mb_s", "host_to_hbm_bound_s"),
+                       ("pinned_to_hbm_copy_s", "copy_bound_s"),
+                       ("unpinned_to_hbm_copy_s", "copy_bound_s"),
+                       ("hbm_to_host_copy_s", "copy_bound_s")):
+        print(f"(q) {key} {res[key] * 1e3:.4f} ms (median of "
+              f"{res['timing_reps']}, CUDA events), bound "
+              f"{res[bound] * 1e3:.4f} ms ({res[bound] / res[key]:.1%} of "
+              f"it); on {name}", flush=True)
+    print(f"(q) roundtrip_penalty_x {res['roundtrip_penalty_x']}; copies "
+          f"equal {res['copies_equal']}; gates {res['gates']}; on {name}",
+          flush=True)
+    failed = [k for k, ok in res["gates"].items() if not ok]
+    check(res["rc"] == 0 and not failed and res["copies_equal"]
+          and res["host_copy_equal"], f"(q) failed gates {failed}, rc "
+          f"{res['rc']}")
+    took = phase_took("(q)", t0, name)
+    return {"phase": "(q) memory-space probe", **res, "took_s": took}
+
+
 def process_tree(root: int) -> list:
     """``root`` and its descendants' pids, from /proc."""
     parents = {}
@@ -3798,6 +3887,160 @@ class ClusterRun:
                      "nodes", "cards_per_node", "pods", "placed", "refused",
                      "numa_bind_pods", "ms", "binds_per_s", "stream_s",
                      "wall_s")}}]
+
+
+# -------------------------------- the control plane's harnesses beside (l).
+# the JAX smoke tests' arguments (tests/test_soak.py, tests/test_sched_bench.py,
+# tests/test_monitor.py), the elastic and migrate legs in simulated time
+SOAK = ["--tenants", "3", "--rate", "30", "--duration", "8", "--nodes", "8",
+        "--waves", "80"]
+HARNESSES = (
+    ("sched", ["vtpu_torch.bench.sched", "--smoke"]),
+    ("monitor", ["vtpu_torch.bench.monitor", "--smoke"]),
+    ("soak", ["vtpu_torch.bench.soak", "--duration", "5", "--nodes", "24",
+              "--pools", "2", "--tenants", "3", "--rate", "40",
+              "--chaos-every", "1.6", "--diurnal-period", "2.5",
+              "--p99-slo-ms", "20000", "--tenant-quota", "8"]),
+    ("soak --elastic", ["vtpu_torch.bench.soak", "--elastic", *SOAK]),
+    ("soak --migrate", ["vtpu_torch.bench.soak", "--migrate", *SOAK]),
+    ("soak --serving", ["vtpu_torch.bench.soak", "--serving", "--duration",
+                        "20", "--tenants", "3"]),
+)
+HARNESS_TIMEOUT_S = 180
+# runs ``python -m MODULE ARGS`` as -m does, then writes the torch, jax and
+# vtpu modules it loaded to OUT
+HARNESS_RUNNER = """
+import json, runpy, sys
+out, mod = sys.argv[1], sys.argv[2]
+sys.argv = [mod] + sys.argv[3:]
+rc = 0
+try:
+    runpy.run_module(mod, run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    rc = e.code if isinstance(e.code, int) else int(e.code is not None)
+with open(out, "w") as f:
+    json.dump(sorted(m for m in sys.modules if m.split(".")[0] in
+                     ("torch", "jax", "jaxlib", "vtpu")), f)
+sys.exit(rc)
+"""
+
+
+def harness_gates(label: str, res: dict) -> list:
+    """what failed of the harness's own result"""
+    if label == "sched":
+        return [] if res["scheduled"] == res["iters"] else ["scheduled"]
+    if label == "monitor":
+        return ([] if res["steady_state_list_calls"] == 0
+                else ["steady_state_list_calls"])
+    bad = [] if res["ok"] else ["ok"]
+    phases = [res[k] for k in ("static", "elastic", "elastic_only",
+                               "migrate") if k in res] or [res]
+    for ph in phases:
+        bad += [k for k in ("overlay_drift", "double_booked_chips",
+                            "quota_violations") if ph.get(k, 0)]
+    return bad
+
+
+class HostHarnesses:
+    """The control plane's benches and the soak's four legs as a user runs
+    them (``python -m vtpu_torch.bench.sched`` ...), one after another on
+    the card's host once phase (n)'s process has ended: beside (l), which
+    times no host work. Their processes are watched as (n)'s are."""
+
+    def __init__(self, after: subprocess.Popen):
+        self.after = after
+        self.tmp = tempfile.mkdtemp(prefix="vgpu-smoke-harness-")
+        self.env = {k: v for k, v in os.environ.items()
+                    if not k.startswith(("CUDA_", "LD_PRELOAD", "VGPU_",
+                                         "VTPU_"))}
+        self.env["PYTHONPATH"] = ROOT
+        self.results: list = []
+        self.handles: list = []
+        self.pids: set = set()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self) -> None:
+        self.after.wait()
+        self.t0 = time.perf_counter()
+        for label, argv in HARNESSES:
+            out = os.path.join(self.tmp, "modules.json")
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(
+                [sys.executable, "-c", HARNESS_RUNNER, out, *argv],
+                env=self.env, cwd=self.tmp, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+            self.pids.add(proc.pid)
+            watch = threading.Thread(target=self._watch, args=(proc,),
+                                     daemon=True)
+            watch.start()
+            try:
+                stdout, stderr = proc.communicate(timeout=HARNESS_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                stdout, stderr = proc.communicate()
+            watch.join(timeout=10)
+            lines = stdout.strip().splitlines()
+            try:
+                res = json.loads(lines[-1])
+                with open(out) as f:
+                    modules = json.load(f)
+            except (IndexError, ValueError, OSError):
+                res, modules = None, None
+            self.results.append({"harness": label, "rc": proc.returncode,
+                                 "took_s": time.perf_counter() - t0,
+                                 "result": res, "modules": modules,
+                                 "stderr": stderr[-2000:]})
+        self.end = time.perf_counter()
+
+    def _watch(self, proc: subprocess.Popen) -> None:
+        while proc.poll() is None:
+            for pid in process_tree(proc.pid):
+                self.pids.add(pid)
+                self.handles += device_handles(pid)
+            time.sleep(0.2)
+
+    def finish(self, name: str, l_ended: float) -> list:
+        self.thread.join(timeout=len(HARNESSES) * HARNESS_TIMEOUT_S)
+        shutil.rmtree(self.tmp, ignore_errors=True)
+        check(len(self.results) == len(HARNESSES),
+              f"(l') {len(self.results)} of {len(HARNESSES)} harnesses ran")
+        out = []
+        for r in self.results:
+            res = r["result"]
+            check(res is not None, f"(l') {r['harness']}: no result, rc "
+                  f"{r['rc']}:\n{r['stderr']}")
+            keys = ("scheduled", "filters_per_sec", "p99_ms",
+                    "steady_state_list_calls", "collect_speedup", "ok",
+                    "overlay_drift", "double_booked_chips", "bound",
+                    "failovers", "node_chaos_events", "p99_latency_ms",
+                    "density_gain", "completed_moves", "blackout_p99_ms",
+                    "requests", "completed", "dropped", "shed_fraction",
+                    "gang_bound", "preempted_replicas")
+            shown = {k: res[k] for k in keys if k in res}
+            bad = harness_gates(r["harness"], res)
+            print(f"(l') python -m vtpu_torch.bench.{r['harness']}: rc "
+                  f"{r['rc']} in {r['took_s']:.1f} s; {shown}; failed "
+                  f"{bad}; torch/jax/vtpu modules {r['modules']}; on "
+                  f"{name}", flush=True)
+            check(r["rc"] == 0 and not bad and r["modules"] == [],
+                  f"(l') {r['harness']}: rc {r['rc']}, failed {bad}, "
+                  f"modules {r['modules']}:\n{r['stderr']}")
+            out.append({"harness": r["harness"], "rc": r["rc"],
+                        "took_s": r["took_s"], **shown})
+        took = self.end - self.t0
+        print(f"(l') the harnesses took {took:.1f} s, "
+              f"{max(0.0, self.end - l_ended):.1f} s of it after (l) "
+              f"ended; device files or CUDA libraries held by their "
+              f"{len(self.pids)} processes {sorted(set(self.handles))}; "
+              f"on {name}", flush=True)
+        check(len(self.pids) >= len(HARNESSES) and not self.handles,
+              f"(l') the harnesses' processes held "
+              f"{sorted(set(self.handles))}")
+        return [{"phase": "(l') control-plane harnesses", "runs": out,
+                 "took_s": took,
+                 "after_l_s": max(0.0, self.end - l_ended)}]
+
 
 
 # ------------------------------------------------------- (l) the north star.
@@ -4266,10 +4509,15 @@ def main() -> int:
     phases += node_agent_phase(name, solo, step_ms)
     serve = serve_children()
     phases.append(livemove_phase(name))
+    probe = ProbeChild()
     phases += serving_phase(name, serve)
+    phases.append(memspace_phase(name, probe))
     cluster = ClusterRun(name)
+    harnesses = HostHarnesses(cluster.proc)
     phases += northstar_phase(name)
+    l_ended = time.perf_counter()
     phases += cluster.finish(name)
+    phases += harnesses.finish(name, l_ended)
     (b11,) = [p for p in phases
               if p["phase"] == "(b) case 1.1 unthrottled cost"]
     phases.append(bench_phase(name, b11["alone"]))

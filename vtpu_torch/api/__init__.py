@@ -225,6 +225,17 @@ ENV_GW_MIN_REPLICAS = "VTPU_GW_MIN_REPLICAS"
 ENV_GW_MAX_REPLICAS = "VTPU_GW_MAX_REPLICAS"
 
 # --------------------------------------------------------------------------
+# Soak knobs (vtpu_torch/bench/soak.py; the JAX soak's names,
+# vtpu/contracts.py:625-627)
+# --------------------------------------------------------------------------
+
+# the chaos soak's length in seconds and its p99 admission-latency SLO in
+# ms; the migrate leg's blackout p99 gate in ms
+ENV_SOAK_S = "VTPU_SOAK_S"
+ENV_SOAK_P99_SLO_MS = "VTPU_SOAK_P99_SLO_MS"
+ENV_MIGRATE_BLACKOUT_P99_MS = "VTPU_MIGRATE_BLACKOUT_P99_MS"
+
+# --------------------------------------------------------------------------
 # Node-monitor knobs (vtpu_torch/monitor; the JAX monitor's names, so one
 # deployment's values serve both vendors)
 # --------------------------------------------------------------------------

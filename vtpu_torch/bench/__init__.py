@@ -35,6 +35,13 @@ Modules: :mod:`.runner` (``CaseRunner``, ``run_case``), :mod:`.wiring`
 ``run_interleaved``), :mod:`.profile` (``--profile``), :mod:`.parity`
 (``--parity``), :mod:`.matrix` (the matrix file), :mod:`.prof` (the reader
 of the interposer's callsite profile), ``__main__`` (``main``).
+
+Beside it, each a ``python -m`` entry point of its own: :mod:`.memspace`
+(the memory-space probe, hack/memspace_probe.py's port), and the control
+plane's host harnesses, which import no torch: :mod:`.sched`
+(benchmarks/sched_bench.py), :mod:`.monitor` (benchmarks/monitor_bench.py),
+:mod:`.soak` (benchmarks/soak.py, over :mod:`.chaos`'s ``ChaosCluster``)
+and :mod:`.serve_ladder` (benchmarks/serve_bench.py).
 """
 
 from __future__ import annotations

@@ -47,7 +47,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from ..gateway import Autoscaler, Replica, ReplicaBatcher, ReplicaSet, Router
-from ..models.serving import ServingStats
+from ..gateway.stats import ServingStats
 from ..scheduler.core import ShedError
 
 #: acceptance floor: continuous batching vs one-request-per-step at

@@ -29,10 +29,12 @@ Two disciplines keep the step loop honest:
   ``ServingStats.last_step_seconds`` — the model stamps its own step
   latency (vtpu_torch/models/serving.py); the gateway never re-times.
 
-The batch is one tensor on the model's device (``model.device``, the host
-for a model without one), copied there in one transfer; a step copies the
-model's output back to the host once, and each request's ``result`` is its
-row of that copy (a numpy row).
+The batch is one tensor on the model's device (``model.device``), copied
+there in one transfer; a step copies the model's output back to the host
+once, and each request's ``result`` is its row of that copy (a numpy row).
+A model with no ``device`` (a simulated one, a host model) gets the numpy
+batch, as the JAX gateway gives every model, and the gateway never imports
+torch for it.
 
 When the queue is full ``submit`` sheds with the scheduler's
 :class:`~vtpu_torch.scheduler.core.ShedError` (429 semantics: an explicit
@@ -43,12 +45,12 @@ retryable refusal, never an opaque timeout), counted per reason in
 from __future__ import annotations
 
 import math
+import sys
 import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, List, Optional
 
 import numpy as np
-import torch
 
 from .. import api
 from ..scheduler.core import ShedError
@@ -140,7 +142,7 @@ class ReplicaBatcher:
                            else env_float(api.ENV_GW_EWMA_ALPHA,
                                           EWMA_ALPHA_DEFAULT,
                                           minimum=0.01))
-        self.device = torch.device(getattr(model, "device", "cpu"))
+        self.device = getattr(model, "device", None)
         self.queue = FairQueue(
             queue_cap if queue_cap is not None
             else env_int(api.ENV_GW_QUEUE, QUEUE_CAP_DEFAULT, minimum=1))
@@ -205,10 +207,15 @@ class ReplicaBatcher:
             metricsmod.GW_RECOMPILES.inc()
         rows = [np.asarray(r.payload, np.float32) for r in reqs]
         pad = np.zeros_like(rows[0])
-        batch = torch.from_numpy(np.stack(rows + [pad] * (bucket - n)))
-        out = self.model.infer(batch.to(self.device))
+        batch = np.stack(rows + [pad] * (bucket - n))
+        if self.device is not None:
+            import torch
+            batch = torch.from_numpy(batch).to(torch.device(self.device))
+        out = self.model.infer(batch)
         # one copy of the whole output to the host, never one per row
-        out = (out.detach().cpu().numpy() if torch.is_tensor(out)
+        torch = sys.modules.get("torch")
+        out = (out.detach().cpu().numpy()
+               if torch is not None and torch.is_tensor(out)
                else np.asarray(out))
         # the model stamped its own step latency (the ServingStats
         # accessor): consume it, never re-time around the call
