@@ -152,15 +152,21 @@ built:
    MiB equal to torch's and ``nvidia-smi``'s and its ``/dev/nvidia<minor>``,
    ``/dev/nvidiactl`` and ``/dev/nvidia-uvm`` present; each card's NUMA
    node and the source that answered (NVML's PCI bus id and sysfs, else
-   ``nvidia-smi topo -m``, else 0) are printed. The device plugin
+   ``nvidia-smi topo -m``, else 0) are printed. The chart
+   deploy/helm/vgpu is rendered (``vtpu_torch.deploy``) with only its
+   node-local paths and ports replaced through its own values (the shim
+   host dir, kubelet's socket dir, a serving cert made with openssl, free
+   ports), and the argv it gives the device plugin, the scheduler
+   extender and the monitor is printed on one line. The device plugin
    then runs in a child through its entry point
-   (``vtpu_torch.plugin.__main__.main``) with an in-memory apiserver
-   (``FakeKubeClient``) and temp dirs for kubelet's socket dir and the shim
-   host dir; it registers with a fake kubelet, ListAndWatch gives
+   (``vtpu_torch.plugin.__main__.main``, the chart's argv, ``NODE_NAME``
+   as the DaemonSet sets it) with an in-memory apiserver
+   (``FakeKubeClient``); it registers with a fake kubelet, ListAndWatch gives
    10 x cards healthy replicas and the register annotation decodes to the
    NVML inventory. The port's scheduler (``vtpu_torch.scheduler.__main__
-   .main``) then runs in a thread of the plugin's process on the same
-   apiserver, its HTTP app on a free local port; the script plays only the
+   .main``, the chart's argv: TLS, ``--ha`` on the in-memory lease) then
+   runs in a thread of the plugin's process on the same apiserver, its
+   HTTPS app on the chart's webhook port; the script plays only the
    API server and kube-scheduler: it POSTs an AdmissionReview to
    ``/webhook`` (the patch sets ``schedulerName`` vtpu-scheduler and
    injects the priority), creates the mutated pod, POSTs ``/filter`` with
@@ -183,8 +189,9 @@ built:
    and its slot, and is clean after it exits;
 11. phase (j), the node monitor (vtpu_torch/monitor) over phase (i)'s
    plugin: the monitor runs in a child through its entry point
-   (``vtpu_torch.monitor.__main__.main``, ``--sweep-interval 1``) with an
-   in-memory apiserver, over the plugin's containers directory, and pods
+   (``vtpu_torch.monitor.__main__.main``, the chart's argv:
+   ``--sweep-interval 1``) with an in-memory apiserver, over the plugin's
+   containers directory, and pods
    are case 1.1 ``--sm-child`` children started from Allocate responses
    (``gpumem`` 12288 MiB): pods H, L and F are allocated and their
    processes started ahead of their turns (``VGPU_SMOKE_HOLD``): H as the
@@ -2103,8 +2110,10 @@ def compute_phases(name: str, children: dict) -> tuple:
 # and writes through the child's stdin/stdout (one JSON command and reply
 # per line). The port's scheduler runs in a thread of the same process,
 # through its own entry point, on the same apiserver: the script reaches
-# its extender and webhook over HTTP. The child imports vtpu_torch's
-# plugin and scheduler only: no torch.
+# its extender and webhook over HTTPS. The child imports vtpu_torch's
+# plugin and scheduler only: no torch. Both daemons, and (j)'s monitor, run
+# with the argv the chart deploy/helm/vgpu gives their containers
+# (chart_daemons), and the node name its DaemonSet gives through NODE_NAME.
 
 PLUGIN_CHILD = r"""
 import json, os, signal, sys, threading, time
@@ -2113,7 +2122,8 @@ from vtpu_torch.plugin.nvml import NvmlLib
 from vtpu_torch.scheduler.__main__ import main as scheduler_main
 from vtpu_torch.util.client import FakeKubeClient
 
-node, sock_dir, shim_dir, split = sys.argv[1:5]
+plugin_argv, scheduler_argv = map(json.loads, sys.argv[1:3])
+node = os.environ["NODE_NAME"]
 # NVML's cost in a process that never initialised CUDA, as the plugin's
 t0 = time.perf_counter()
 lib = NvmlLib()
@@ -2147,11 +2157,9 @@ def serve():
             reply = cold
         elif op == "scheduler":
             # the port's scheduler daemon on the same apiserver, serving
-            # its extender and webhook on the given local port
-            threading.Thread(target=scheduler_main, args=([
-                "--http-bind", f"127.0.0.1:{cmd['port']}",
-                "--metrics-bind", f"127.0.0.1:{cmd['metrics_port']}"],),
-                kwargs={"client": client}, daemon=True).start()
+            # its extender and webhook where the chart's argv says
+            threading.Thread(target=scheduler_main, args=(scheduler_argv,),
+                             kwargs={"client": client}, daemon=True).start()
             reply = {"started": True}
         else:
             reply = {"modules": sorted(
@@ -2162,9 +2170,7 @@ def serve():
 
 
 threading.Thread(target=serve, daemon=True).start()
-main(["--node-name", node, "--socket-dir", sock_dir, "--shim-host-dir",
-      shim_dir, "--health-port", "-1", "--node-config-file", os.devnull,
-      "--device-split-count", split, "-v"], client=client)
+main(plugin_argv, client=client)
 print("stopped", file=out, flush=True)
 """
 
@@ -2207,20 +2213,63 @@ def compute_apps() -> int:
     return len([line for line in out.splitlines() if line.strip()])
 
 
+def chart_daemons(tmp: str) -> dict:
+    """The argv the chart deploy/helm/vgpu gives the device plugin, the
+    scheduler extender and the node monitor (rendered by vtpu_torch.deploy,
+    which tests/test_torch_deploy.py holds to the chart), with only
+    node-local paths and ports replaced, through the chart's own values:
+    the shim and kubelet socket dirs under ``tmp``, the webhook's serving
+    cert (made here with openssl, as the chart's certgen job makes it) and
+    free ports. Printed on one line."""
+    from vtpu_torch import deploy
+
+    dirs = {d: os.path.join(tmp, d) for d in ("vgpu", "device-plugins",
+                                              "tls")}
+    os.makedirs(dirs["device-plugins"])
+    os.makedirs(dirs["tls"])
+    subprocess.run(
+        ["openssl", "req", "-x509", "-newkey", "rsa:2048", "-nodes",
+         "-days", "1", "-subj", "/CN=127.0.0.1",
+         "-keyout", os.path.join(dirs["tls"], "tls.key"),
+         "-out", os.path.join(dirs["tls"], "tls.crt")],
+        check=True, capture_output=True, timeout=60)
+    ports = {k: free_port() for k in ("health", "webhook", "sched_metrics",
+                                      "metrics", "info")}
+    objs = deploy.objects({
+        "devicePlugin": {"shimHostDir": dirs["vgpu"],
+                         "socketDir": dirs["device-plugins"],
+                         "healthPort": ports["health"]},
+        "scheduler": {"webhookPort": ports["webhook"],
+                      "metricsPort": ports["sched_metrics"],
+                      "tlsDir": dirs["tls"]},
+        "monitor": {"metricsPort": ports["metrics"],
+                    "infoPort": ports["info"]}})
+    argv = {name: deploy.daemon_argv(objs, name) for name in deploy.DAEMONS}
+    print("(i) the daemons' argv from deploy/helm/vgpu: "
+          + json.dumps(argv), flush=True)
+    check(f"--device-split-count={SPLIT}" in argv["device-plugin"]
+          and f"--sweep-interval={SWEEP_S:g}" in argv["monitor"],
+          f"the chart's split count or sweep interval moved: {argv}")
+    return {"argv": argv, "ports": ports, "dirs": dirs}
+
+
 class PluginChild:
     """The device plugin process and its in-memory apiserver."""
 
     def __init__(self, tmp: str):
-        self.sock_dir = os.path.join(tmp, "device-plugins")
-        self.shim_dir = os.path.join(tmp, "vgpu")
-        os.makedirs(self.sock_dir)
+        self.chart = chart_daemons(tmp)
+        self.sock_dir = self.chart["dirs"]["device-plugins"]
+        self.shim_dir = self.chart["dirs"]["vgpu"]
         env = {k: v for k, v in os.environ.items()
                if not k.startswith(("CUDA_", "LD_PRELOAD", "VGPU_"))}
         env["PYTHONPATH"] = ROOT
+        env[api.ENV_NODE_NAME] = NODE_NAME
         self.errf = open(os.path.join(tmp, "plugin.err"), "w+")
+        argv = self.chart["argv"]
         self.proc = subprocess.Popen(
-            [sys.executable, "-c", PLUGIN_CHILD, NODE_NAME, self.sock_dir,
-             self.shim_dir, str(SPLIT)],
+            [sys.executable, "-c", PLUGIN_CHILD,
+             json.dumps(argv["device-plugin"]),
+             json.dumps(argv["vgpu-scheduler-extender"])],
             env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
             stderr=self.errf, text=True)
 
@@ -2253,14 +2302,17 @@ class PluginChild:
 
 
 class Extender:
-    """The port's scheduler over HTTP, as kube-scheduler and the API
-    server reach it."""
+    """The port's scheduler over HTTPS, as kube-scheduler and the API
+    server reach it (the chart's extender config skips the cert check:
+    tlsConfig insecure)."""
 
     def __init__(self, port: int):
         import http.client
+        import ssl
 
-        self.conn = http.client.HTTPConnection("127.0.0.1", port,
-                                               timeout=60)
+        self.conn = http.client.HTTPSConnection(
+            "127.0.0.1", port, timeout=60,
+            context=ssl._create_unverified_context())
 
     def call(self, method: str, path: str, body=None):
         t0 = time.perf_counter()
@@ -2278,10 +2330,9 @@ class Extender:
 
 def start_scheduler(plugin: "PluginChild") -> int:
     """The port's scheduler, started through its entry point in the
-    plugin's process on the same apiserver; its HTTP port."""
-    port, metrics_port = free_port(), free_port()
-    plugin.ask("scheduler", port=port, metrics_port=metrics_port)
-    return port
+    plugin's process on the same apiserver; its HTTPS port."""
+    plugin.ask("scheduler")
+    return plugin.chart["ports"]["webhook"]
 
 
 def extender_phase(name: str, plugin: "PluginChild", port: int,
@@ -2354,7 +2405,7 @@ def extender_phase(name: str, plugin: "PluginChild", port: int,
     got = [(d.uuid, d.usedmem, d.usedcores) for d in placed]
     locked = api.NODE_LOCK_ANNO in plugin.ask("get_node")["metadata"][
         "annotations"]
-    print(f"(i) the port's scheduler over HTTP: /webhook {webhook_ms:.3f} "
+    print(f"(i) the port's scheduler over HTTPS: /webhook {webhook_ms:.3f} "
           f"ms (schedulerName {pod['spec']['schedulerName']}, "
           f"{api.ENV_TASK_PRIORITY}=1 and {api.TASK_PRIORITY_ANNO} 1 "
           f"injected), /filter {filter_ms:.3f} ms (winner {NODE_NAME}), "
@@ -2634,7 +2685,8 @@ from vtpu_torch.monitor import daemon
 from vtpu_torch.monitor.__main__ import main
 from vtpu_torch.util.client import FakeKubeClient
 
-node, containers, metrics_port, info_port = sys.argv[1:5]
+argv = json.loads(sys.argv[1])
+node = os.environ["NODE_NAME"]
 # each sweep's latency, for the report (the histogram's buckets are coarse)
 sweeps = []
 sweep_once = daemon.MonitorDaemon.sweep_once
@@ -2676,9 +2728,7 @@ def serve():
 
 
 threading.Thread(target=serve, daemon=True).start()
-main(["--containers-dir", containers, "--node-name", node,
-      "--sweep-interval", "1", "--metrics-port", metrics_port,
-      "--info-port", info_port], client=client)
+main(argv, client=client)
 print("stopped", file=out, flush=True)
 """
 
@@ -2700,17 +2750,20 @@ def free_port() -> int:
 
 
 class MonitorChild:
-    """The node monitor process and its in-memory apiserver."""
+    """The node monitor process and its in-memory apiserver, started with
+    the chart's argv (chart_daemons)."""
 
-    def __init__(self, tmp: str, containers: str):
-        self.metrics_port, self.info_port = free_port(), free_port()
+    def __init__(self, tmp: str, chart: dict):
+        self.metrics_port = chart["ports"]["metrics"]
+        self.info_port = chart["ports"]["info"]
         env = {k: v for k, v in os.environ.items()
                if not k.startswith(("CUDA_", "LD_PRELOAD", "VGPU_"))}
         env["PYTHONPATH"] = ROOT
+        env[api.ENV_NODE_NAME] = NODE_NAME
         self.errf = open(os.path.join(tmp, "monitor.err"), "w+")
         self.proc = subprocess.Popen(
-            [sys.executable, "-c", MONITOR_CHILD, NODE_NAME, containers,
-             str(self.metrics_port), str(self.info_port)],
+            [sys.executable, "-c", MONITOR_CHILD,
+             json.dumps(chart["argv"]["monitor"])],
             env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
             stderr=self.errf, text=True)
 
@@ -2956,7 +3009,9 @@ def monitor_phase(name: str, solo_img_s: float, step_ms: dict, plugin,
         return gauge, busy, run, nvml, window
 
     used0, apps0 = card_used_mb(), compute_apps()
-    monitor = MonitorChild(tmp, containers)
+    check(f"--containers-dir={containers}" in plugin.chart["argv"]["monitor"],
+          f"the monitor's argv {plugin.chart['argv']['monitor']}")
+    monitor = MonitorChild(tmp, plugin.chart)
     ahead = {}
     try:
         # pod H's interpreter loads while the monitor starts

@@ -783,8 +783,12 @@ def test_a_drained_stream_on_a_shared_core_is_charged_its_busy_time(
     every stream, the ~27 samples a run took followed the host's delays
     badly: 0.837-1.116x over six runs, two past the bound; sampling one
     span in 8 of a stream busy less than half its time reads
-    0.908-1.043x. The pinned window holds tests/torch_timing.py's lock, so
-    no timed test of another worker runs beside it."""
+    0.908-1.043x. Beside the suite's heavy files that was 0.848-1.093x:
+    a sample's idle tail (the host descheduled past 2 ms after its last
+    launch) diluted the busy fraction though no span is charged for it;
+    capped in the sample as in the charge, 0.975-1.016x over 36 runs. The
+    pinned window holds tests/torch_timing.py's lock, so no timed test of
+    another worker runs beside it."""
     core = max(os.sched_getaffinity(0))
     with exclusive():
         spinners = [subprocess.Popen(

@@ -2,8 +2,8 @@
 the port, held to the JAX package's own kill points.
 
 Every fast kill point of tests/test_ha.py, tests/test_ha_chaos.py,
-tests/test_group_chaos.py, tests/test_resize_chaos.py and
-tests/test_migrate_chaos.py runs twice on the same inputs
+tests/test_group_chaos.py, tests/test_resize_chaos.py,
+tests/test_migrate_chaos.py and tests/test_preempt_chaos.py runs twice on the same inputs
 (tests/torch_sched_parity.py ``run_reference_test``): as written, against
 the JAX package with the port's GPUDevices registered, and with every name
 it takes from ``vtpu`` bound to the port's (vtpu_torch.ha,
@@ -31,9 +31,11 @@ import importlib
 import pytest
 
 from tests.torch_sched_parity import run_reference_test
+from vtpu_torch.contracts import covers_edge
 
 FILES = ("tests.test_ha", "tests.test_ha_chaos", "tests.test_group_chaos",
-         "tests.test_resize_chaos", "tests.test_migrate_chaos")
+         "tests.test_resize_chaos", "tests.test_migrate_chaos",
+         "tests.test_preempt_chaos")
 
 #: kill points left out, and why (module docstring)
 LEFT_OUT = {
@@ -81,6 +83,22 @@ def kill_points():
     return out
 
 
+#: the crash edges of vtpu_torch/contracts.py these kill points exercise
+#: on the port: each is the edge its JAX kill point tags; the edges whose
+#: only kill points are left out above carry a waiver in the registry
+@covers_edge(
+    "commit:kill-mid-gang", "commit:kill-mid-queue-drain",
+    "commit:deposed-inflight-commit", "commit:deposed-mid-bind",
+    "commit:kill-during-bind-flush", "resize:deposed-intent",
+    "evict:kill-before-stamp", "evict:kill-between-stamp-and-delete",
+    "evict:deposed-leader-stamp", "evict:abandoned-gang-unwind",
+    "migrate:kill-before-stamp", "migrate:kill-after-stamp",
+    "migrate:kill-after-snapshot",
+    "migrate:kill-after-cutover-before-release",
+    "migrate:rescue-deadline-expiry", "group-lease:owner-kill-mid-burst",
+    "group-lease:kill-mid-evict-absorption",
+    "group-lease:handoff-vs-queued-commit",
+    "group-lease:handoff-mid-resize", "group-lease:lease-split-rejoin")
 @pytest.mark.parametrize("modname,test", kill_points())
 def test_kill_point_matches_the_reference(modname, test, tmp_path):
     jax = run_reference_test(modname, test, False, tmp_path / "jax")

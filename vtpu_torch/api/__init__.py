@@ -23,6 +23,10 @@ ENV_VISIBLE_DEVICES = "CUDA_VISIBLE_DEVICES"
 # container (as ordinals 0..n-1), and by vtpu_torch/plugin/runtime.py, which
 # stands in for it where there is no container
 ENV_NVIDIA_VISIBLE_DEVICES = "NVIDIA_VISIBLE_DEVICES"
+# the driver libraries nvidia-container-runtime mounts into a container;
+# the chart's node agents ask for "utility" (NVML, nvidia-smi) on every
+# card (deploy/helm/vgpu), and create no CUDA context
+ENV_NVIDIA_DRIVER_CAPABILITIES = "NVIDIA_DRIVER_CAPABILITIES"
 
 # device-memory cap, per visible device index ("%s_%d" per-device form
 # first, the bare form as the default for all); "3g" / "512m" / bytes
@@ -251,8 +255,10 @@ ENV_RESIZE_GRACE_S = "VTPU_RESIZE_GRACE_S"
 ENV_MONITOR_LIST_FALLBACK_S = "VTPU_MONITOR_LIST_FALLBACK_S"
 ENV_MONITOR_PROFILE_EXPORT = "VTPU_MONITOR_PROFILE_EXPORT"
 ENV_SHIM_STALE_S = "VTPU_SHIM_STALE_S"
-# enforce/region.py: "0" skips the header-checksum verification
+# enforce/region.py: "0" skips the header-checksum verification, and a
+# libvgpucore.so to load in place of the built one
 ENV_REGION_CHECKSUM = "VTPU_REGION_CHECKSUM"
+ENV_CORE_LIB = "VGPU_CORE_LIB"
 # util/lockdebug.py, util/logsetup.py, trace/core.py
 ENV_LOCKDEBUG = "VTPU_LOCKDEBUG"
 ENV_LOG_FORMAT = "VTPU_LOG_FORMAT"

@@ -31,7 +31,7 @@ from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 from .. import api, native
-from ..util.env import env_bool
+from ..util.env import env_bool, env_str
 
 VTPU_SHARED_MAGIC = 0x76545055
 VTPU_SHARED_VERSION = 8
@@ -43,8 +43,32 @@ VTPU_MAX_PROCS = 64
 VTPU_UUID_LEN = 64
 VTPU_PROF_BUCKETS = 24
 VTPU_PROF_BUCKET_MIN_SHIFT = 7
+# libvgpu.so samples 1 call in this many per thread unless VTPU_PROFILE_SAMPLE
+# says otherwise (shared_region.c)
+VTPU_PROF_SAMPLE_DEFAULT = 64
+# the callsite classes' indices (shared_region.h VTPU_PROF_CS_*)
+VTPU_PROF_CS_BUF_ALLOC = 0
+VTPU_PROF_CS_BUF_FREE = 1
+VTPU_PROF_CS_CHARGE = 2
+VTPU_PROF_CS_UNCHARGE = 3
+VTPU_PROF_CS_EXECUTE = 4
+VTPU_PROF_CS_TRANSFER = 5
+VTPU_PROF_CS_DONE_WITH_BUFFER = 6
+VTPU_PROF_CS_QUOTA_CHECK = 7
 VTPU_PROF_CALLSITES = 8
+# the pressure counters' indices (shared_region.h VTPU_PROF_PK_*)
+VTPU_PROF_PK_CHARGE_RETRIES = 0
+VTPU_PROF_PK_CONTENTION_SPINS = 1
+VTPU_PROF_PK_AT_LIMIT_NS = 2
+VTPU_PROF_PK_NEAR_LIMIT_FAILURES = 3
+VTPU_PROF_PK_TABLE_DROPS = 4
+VTPU_PROF_PK_HOST_NEAR_LIMIT_FAILURES = 5
+VTPU_PROF_PK_HOST_OVER_EVENTS = 6
 VTPU_PROF_PRESSURE_KINDS = 7
+# the header digest's FNV-1a parameters (shared_region.h): the monitor and
+# libvgpu.so must digest the same bytes alike, or every region is corrupt
+VTPU_HEADER_CSUM_INIT = 0xCBF29CE484222325
+VTPU_HEADER_CSUM_PRIME = 0x100000001B3
 
 UTIL_POLICY_DEFAULT = 0
 UTIL_POLICY_FORCE = 1
@@ -193,7 +217,7 @@ def load_core_library(path: Optional[str] = None):
     """The port's ``libvgpucore.so`` with prototypes declared and its
     struct size checked against this mirror; ``VGPU_CORE_LIB`` overrides
     the built one."""
-    return _load(path or os.environ.get("VGPU_CORE_LIB")
+    return _load(path or env_str(api.ENV_CORE_LIB)
                  or native.core_library())
 
 
@@ -202,6 +226,17 @@ class RegionCorruptError(ValueError):
     header-checksum mismatch), as opposed to the transient states a plain
     ValueError reports (not initialized yet, a region of a previous ABI).
     The monitor's quarantine counts only this class."""
+
+
+def prof_bucket_index(ns: int) -> int:
+    """The log2 bucket libvgpu.so bins a latency of ``ns`` into
+    (shared_region.c vtpu_prof_bucket_index): bucket 0 holds latencies
+    under 2**MIN_SHIFT ns, bucket b [2**(MIN_SHIFT+b-1), 2**(MIN_SHIFT+b)),
+    the last one overflows."""
+    v = ns >> VTPU_PROF_BUCKET_MIN_SHIFT
+    if v <= 0:
+        return 0
+    return min(v.bit_length(), VTPU_PROF_BUCKETS - 1)
 
 
 def prof_bucket_bounds() -> List[float]:

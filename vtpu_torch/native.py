@@ -45,6 +45,7 @@ from concurrent import futures
 from typing import Dict, List, Tuple
 
 from . import api
+from .util.env import env_str
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
@@ -110,7 +111,7 @@ def build(target: str, variant: str = "") -> str:
     out = os.path.join(BUILD, variant, target)
     if not _stale(out, sources + headers):
         return out
-    cc = os.environ.get("CC", "gcc")
+    cc = env_str("CC", "gcc")
     if shutil.which(cc) is None:
         raise NativeBuildFailure(f"{cc} not found; cannot build {target}")
     os.makedirs(os.path.dirname(out), exist_ok=True)

@@ -237,7 +237,7 @@ class SchedulerCollector(Collector):
             "vGPUDeviceSharedNum", "tasks sharing the device",
             labels=["nodeid", "deviceuuid", "deviceidx"],
         )
-        # vtpulint: ignore[VTPU005] reference-inherited family name; renaming breaks existing dashboards (docs/static-analysis.md)
+        # vtpulint: ignore[VTPU005] reference-inherited family name; renaming breaks existing dashboards (docs/gpu/static-analysis.md)
         node_mem_pct = GaugeMetricFamily(
             "nodeTPUMemoryPercentage", "node HBM allocation ratio",
             labels=["nodeid"],
