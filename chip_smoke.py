@@ -186,7 +186,12 @@ built:
    12 GiB ``mem_get_info`` total, is refused one allocation past it and
    runs on, runs at 0.40-0.60x phase (c)'s unthrottled img/s for 6 s, and
    its region at the mount's host path carries the limit, the SM limit 50
-   and its slot, and is clean after it exits;
+   and its slot, and is clean after it exits. One scrape of the
+   scheduler's metrics port holds every selector of the GPU dashboards
+   (docs/gpu/dashboard.json, deploy/grafana/gpu-shim-profile.json) that
+   names a scheduler family (vtpu_torch/dashboards.py): each names a
+   family the scheduler declares and a sample its type serves, and each
+   family this phase fills (``SCHEDULER_FILLED``) has one;
 11. phase (j), the node monitor (vtpu_torch/monitor) over phase (i)'s
    plugin: the monitor runs in a child through its entry point
    (``vtpu_torch.monitor.__main__.main``, the chart's argv:
@@ -211,7 +216,10 @@ built:
    that, libvgpu.so's charge over its run and its region's share of the
    window are printed beside). Pod L (priority 1, ``gpucores`` 50) joins
    while H runs: both throttled and L blocked within 3 sweeps, L's region
-   launches stand still for 5 s, H runs at 0.40-0.60x. H exits: L is
+   launches stand still for 5 s, H runs at 0.40-0.60x; inside those 5 s
+   one scrape of the monitor holds the dashboards' monitor selectors as
+   (i) holds the scheduler's (``MONITOR_FILLED``), and the quota-leakage
+   panel, evaluated by hand on it, reads under 0.02 for every pod. H exits: L is
    unblocked within 3 sweeps and, once H's directory is gone, released
    and at >= 0.95x. Pod F alone under ``GPU_CORE_UTILIZATION_POLICY=force``
    stays throttled at 0.40-0.60x. ``/nodeinfo`` lists each live pod with
@@ -360,9 +368,27 @@ T_START = time.perf_counter()  # the script's start, for its wall time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
+# The measured machine's interpreter runs with PYTHONDONTWRITEBYTECODE=1
+# over site-packages that hold no bytecode, so each process compiled
+# torch's Python sources anew: `import torch` took 8.9-10.7 s there, and
+# the run starts some hundred such processes (PERF.md section 4). The run
+# keeps the bytecode its processes compile in a temp dir of its own, which
+# every child inherits, and removes it at its exit.
+PYCACHE_ENV = "VGPU_SMOKE_PYCACHE"
+if not os.environ.get(PYCACHE_ENV):
+    import atexit
+
+    os.environ[PYCACHE_ENV] = tempfile.mkdtemp(prefix="vgpu-smoke-pyc-")
+    atexit.register(shutil.rmtree, os.environ[PYCACHE_ENV], True)
+os.environ["PYTHONPYCACHEPREFIX"] = os.environ[PYCACHE_ENV]
+os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+sys.pycache_prefix = os.environ[PYCACHE_ENV]
+sys.dont_write_bytecode = False
+T_IMPORT = time.perf_counter()
+
 import torch  # noqa: E402
 
-from vtpu_torch import api, native  # noqa: E402
+from vtpu_torch import api, dashboards, native  # noqa: E402
 from vtpu_torch.bench import memspace  # noqa: E402
 from vtpu_torch.enforce import install  # noqa: E402
 from vtpu_torch.enforce.region import (  # noqa: E402
@@ -379,6 +405,7 @@ from vtpu_torch.models.train import (  # noqa: E402
     make_train_step,
 )
 
+IMPORT_S = time.perf_counter() - T_IMPORT  # torch and the port, compiled
 CASES = {c.case: c for c in BENCH_CASES}
 GiB = 1 << 30
 MiB = 1 << 20
@@ -2556,6 +2583,9 @@ def node_agent_phase(name: str, solo_img_s: float,
             "annotations"]
         check(phase == "success" and not locked,
               f"after Allocate: bind-phase {phase}, node locked {locked}")
+        extender["dashboards"] = dashboard_check(
+            name, "(i)", "scheduler", plugin.chart["ports"]["sched_metrics"],
+            SCHEDULER_FILLED)
         (ctr,) = resp.container_responses
         print(f"(i) Allocate over the plugin's socket: {alloc_ms:.3f} ms; "
               f"bind-phase {phase}, node lock released; response env "
@@ -2741,6 +2771,78 @@ UTIL_WINDOW_S = 10.0   # two scrapes this far apart give HostCoreUtilization
 MONITOR_PHASE_S = 120.0
 
 
+# The GPU dashboards (docs/gpu/dashboard.json, deploy/grafana/
+# gpu-shim-profile.json) held to one scrape of each daemon on the card:
+# every selector naming a family the daemon serves must name a sample its
+# family's type serves; the families below, which (i) and (j) fill, must
+# hold one. Any other selector is printed as declared, with no sample: a
+# preemption, an admission shed, a stage the monitor does not record.
+MONITOR_FILLED = (
+    "HostGPUMemoryCapacity", "HostGPUMemoryUsage", "HostCoreUtilization",
+    "vGPU_device_memory_usage_in_bytes", "vGPU_device_memory_limit_in_bytes",
+    "vGPUPodGPUMemoryLimit", "vGPU_container_program_launches",
+    "vGPU_container_oom_events", "vGPUShimStale", "vGPUShimHeartbeatAge",
+    "vGPUShimCallsiteLatency", "vGPUShimCallsiteCalls",
+    "vGPUShimCallsiteErrors", "vGPUShimQuotaPressure",
+    "vGPUShimPodQuotaPressure", "vGPUShimPodSeconds", "vGPUHostMemUsed",
+    "vGPUHostMemLimit", "vGPUHostMemOOMEvents", "vGPUResizeApplied",
+    "vGPUResizeClamped", "vGPUResizeBlocked", "vGPUResizeRefused",
+    "vGPUHostQuotaOver", "vGPUHostQuotaBlocked", "vGPUHostQuotaUnblocked")
+SCHEDULER_FILLED = (
+    "vGPUDeviceMemoryAllocated", "vGPUDeviceMemoryLimit",
+    "vGPUSchedulingStageLatency", "vGPUCommitQueueDepth",
+    "vGPUAdmissionBatchSize", "vGPUCommitCoalesced", "vGPUCommitBulkWrites",
+    "vGPURebalanceGrows", "vGPURebalanceShrinks",
+    "vGPURebalanceSkippedHeadroom", "vGPUMigrationCandidates",
+    "vGPUPreemptionVictims", "vGPUGangGroupTakeovers",
+    "vGPUShardGroupOwner", "vGPUShardGroupTransitions")
+
+
+def get_text(port: int, path: str = "/metrics") -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=10) as resp:
+        return resp.read().decode()
+
+
+def dashboard_check(name: str, label: str, exporter: str, port: int,
+                    filled) -> dict:
+    """One scrape of ``exporter`` on ``port`` held to the GPU dashboards
+    (vtpu_torch.dashboards.hold); on the monitor, the quota-leakage panel
+    evaluated on the same scrape and held under 0.02. One line for the
+    selectors, one for the verdict (and one for the panel)."""
+    t0 = time.perf_counter()
+    text = get_text(port)
+    lines, failures = dashboards.hold(text, exporter, filled)
+    sampled = [t for t in lines if "matching" in t]
+    print(f"{label} the GPU dashboards' selectors on one scrape of the "
+          f"{exporter} (:{port}): " + "; ".join(lines) + f"; on {name}",
+          flush=True)
+    res = {"selectors": len(lines), "sampled": len(sampled),
+           "declared_no_sample": len(lines) - len(sampled),
+           "failures": failures}
+    if exporter == "monitor":
+        leak = dashboards.leakage(text)
+        res["leakage"] = leak
+        worst = max(leak.values()) if leak else None
+        print(f"{label} the quota-leakage panel on that scrape, "
+              f"{dashboards.LEAKAGE_EXPR}: "
+              + ", ".join(f"{pod} {v:+.4f}" for pod, v in sorted(
+                  leak.items()))
+              + f"; the most {worst}, bound < {dashboards.LEAKAGE_BOUND}; "
+              f"on {name}", flush=True)
+        check(worst is not None and worst < dashboards.LEAKAGE_BOUND,
+              f"{label} the leakage panel reads {leak}")
+    res["check_s"] = time.perf_counter() - t0
+    print(f"{label} the {exporter}'s dashboard selectors: {len(lines)}, "
+          f"{len(sampled)} with samples, {len(lines) - len(sampled)} "
+          f"declared with no sample, {len(failures)} failed; the checks "
+          f"took {res['check_s']:.3f} s; on {name}", flush=True)
+    check(not failures, f"{label} dashboards: {failures}")
+    return res
+
+
 def free_port() -> int:
     import socket
 
@@ -2807,7 +2909,7 @@ class MonitorChild:
         """family -> {frozenset(labels): value}, one GET /metrics"""
         from prometheus_client.parser import text_string_to_metric_families
 
-        text = self.get(self.metrics_port, "/metrics").decode()
+        text = get_text(self.metrics_port)
         return {f.name: {frozenset(s.labels.items()): s.value
                          for s in f.samples}
                 for f in text_string_to_metric_families(text)}
@@ -3143,7 +3245,11 @@ def monitor_phase(name: str, solo_img_s: float, step_ms: dict, plugin,
         time.sleep(0.5)
         held = feedback(lo)[2]
         info = {e["entry"]: e for e in monitor.nodeinfo()["containers"]}
-        time.sleep(5.0)
+        # the dashboards on the live scrape, inside the 5 s L stands still
+        t0 = time.monotonic()
+        dash = dashboard_check(name, "(j)", "monitor", monitor.metrics_port,
+                               MONITOR_FILLED)
+        time.sleep(max(0.0, 5.0 - (time.monotonic() - t0)))
         still = feedback(lo)[2]
         h_run = h.read()
         h_share = h_run["img_s"] / solo_img_s
@@ -3165,7 +3271,8 @@ def monitor_phase(name: str, solo_img_s: float, step_ms: dict, plugin,
                   and info[entry]["hbm_limit"] == [quota]
                   and info[entry]["hbm_used"][0] > 0,
                   f"(j) /nodeinfo entry {info[entry]}")
-        result.update(l_block_s=block_s, h_share_beside_l=h_share)
+        result.update(l_block_s=block_s, h_share_beside_l=h_share,
+                      dashboards=dash)
 
         # 4. H exits
         h.close()
@@ -4463,7 +4570,9 @@ def main() -> int:
         timeout=60).stdout.split()[0]
     print(f"card: {name}; driver {driver}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, cuDNN {torch.backends.cudnn.version()}, "
-          f"{sys.executable}", flush=True)
+          f"{sys.executable}; torch and the port imported in {IMPORT_S:.2f} "
+          f"s, their bytecode kept under {os.environ[PYCACHE_ENV]} for the "
+          f"run's children", flush=True)
     # the libraries build (gcc, on the host) while the native, training
     # and sharded phases run: none of them loads one
     t0 = time.perf_counter()

@@ -32,6 +32,7 @@ import sys
 import pytest
 
 import tests.torch_sched_parity as tsp
+from tests import torch_jaxlib
 from vtpu.util.types import DeviceInfo as JaxDeviceInfo
 
 from vtpu_torch.bench import monitor as port_monitor
@@ -261,15 +262,9 @@ def test_host_harnesses_import_no_torch_jax_or_vtpu():
 
 @pytest.fixture(scope="module")
 def jax_core(tmp_path_factory):
-    """the JAX package's libvtpucore.so in a directory of this module's
-    own, loaded only by the JAX collector's process: each copy of the
-    library loaded takes static TLS that a test process has little of"""
-    build = str(tmp_path_factory.mktemp("jax-core"))
-    out = os.path.join(build, "libvtpucore.so")
-    subprocess.run(["make", "-s", "-C", os.path.join(REPO, "lib", "vtpu"),
-                    f"BUILD={build}", out], check=True, capture_output=True,
-                   timeout=300)
-    return out
+    """the JAX package's libvtpucore.so (tests/torch_jaxlib.py), loaded
+    only by the JAX collector's process"""
+    return torch_jaxlib.core(tmp_path_factory)
 
 
 #: the JAX legacy collector over a containers directory, in a process of

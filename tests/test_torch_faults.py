@@ -31,6 +31,9 @@ from tests.torch_timing import exclusive, timed
 from vtpu_torch import api, native
 from vtpu_torch.enforce.region import RegionView, SharedRegionStruct
 
+# each test of a heavy file takes tests/torch_timing.py's lock
+pytest_plugins = ["tests.torch_timing"]
+
 MiB = 1 << 20
 MS = 1_000_000  # ns
 UUID0 = "GPU-00000000-0000-0000-0000-000000000000"  # the mock's device 0

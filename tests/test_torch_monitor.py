@@ -27,6 +27,7 @@ from types import SimpleNamespace
 import pytest
 
 import vtpu.enforce.region as jax_region
+from tests import torch_jaxlib
 import vtpu.trace as jax_trace
 from vtpu.enforce import workload as jax_workload
 from vtpu.monitor import daemon as jax_daemon
@@ -79,15 +80,9 @@ FEEDBACK = {"jax": jax_feedback, "port": port_feedback}
 
 @pytest.fixture(scope="module")
 def jax_core(tmp_path_factory):
-    """The JAX package's libvtpucore.so, built into a directory of this
-    module's own (never lib/vtpu/build/, which the JAX tests build)."""
-    build = str(tmp_path_factory.mktemp("jax-core"))
-    out = os.path.join(build, "libvtpucore.so")
-    subprocess.run(["make", "-s", "-C", os.path.join(REPO, "lib", "vtpu"),
-                    f"BUILD={build}", out], check=True, capture_output=True,
-                   timeout=300)
+    """The JAX package's libvtpucore.so (tests/torch_jaxlib.py)."""
     native.build_all()
-    return out
+    return torch_jaxlib.core(tmp_path_factory)
 
 
 @pytest.fixture(autouse=True)

@@ -39,6 +39,9 @@ from tests import torch_timing
 from vtpu_torch import native
 from vtpu_torch.bench import prof
 
+# each test of a heavy file takes tests/torch_timing.py's lock
+pytest_plugins = ["tests.torch_timing"]
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LIB_VTPU = os.path.join(REPO, "lib", "vtpu")
 JAX_BUILD = os.path.join(LIB_VTPU, "build")

@@ -25,6 +25,7 @@ import textwrap
 
 import pytest
 
+from tests import torch_jaxlib
 from vtpu.enforce import region as jax_region
 from vtpu_torch import api, native
 from vtpu_torch.bench import profile, prof
@@ -220,14 +221,8 @@ def libs():
 
 @pytest.fixture(scope="module")
 def jax_core(tmp_path_factory):
-    """The JAX package's libvtpucore.so, built into a directory of this
-    module's own (never lib/vtpu/build/, which the JAX tests build)."""
-    build = str(tmp_path_factory.mktemp("jax-core"))
-    out = os.path.join(build, "libvtpucore.so")
-    subprocess.run(["make", "-s", "-C", os.path.join(REPO, "lib", "vtpu"),
-                    f"BUILD={build}", out], check=True, capture_output=True,
-                   timeout=300)
-    return out
+    """The JAX package's libvtpucore.so (tests/torch_jaxlib.py)."""
+    return torch_jaxlib.core(tmp_path_factory)
 
 
 @pytest.fixture(autouse=True)

@@ -16,6 +16,8 @@ from aiohttp.test_utils import TestClient, TestServer
 
 from torch_sched_parity import (Pair, cards, gpu_pod, node_annos,
                                 register_vendors, reset_vendors)
+from vtpu.util import nodelock as jax_nodelock
+from vtpu_torch.util import nodelock as port_nodelock
 
 
 @pytest.fixture(autouse=True)
@@ -253,7 +255,13 @@ def test_filter_503_not_owner_and_standby():
 # /bind
 # ---------------------------------------------------------------------------
 
-def test_bind_bound_locked_and_failed():
+def test_bind_bound_locked_and_failed(monkeypatch):
+    # the refusal names the lock's time, and the two sides run one after
+    # the other: both lock the node at one instant, so a second that ticks
+    # between them does not tell them apart
+    stamp = port_nodelock.now_str()
+    for lock in (jax_nodelock, port_nodelock):
+        monkeypatch.setattr(lock, "_now_str", lambda: stamp)
     pair = make_pair()
     try:
         admitted(pair, gpu_pod("p", 1, mem=3072))
@@ -272,8 +280,8 @@ def test_bind_bound_locked_and_failed():
                                        "Node": "n1"})]
         ans = both(pair, reqs)
         assert ans[2] == [200, {"Error": ""}]
-        assert ans[3][0] == 200 and ans[3][1]["Error"].startswith(
-            "node locked binding default/q")
+        assert ans[3] == [200, {"Error": "node locked binding default/q: "
+                                f"node n0 locked since {stamp}"}]
         assert ans[4][0] == 200 and ans[4][1]["Error"].startswith(
             "bind default/gone failed")
         for side in pair.sides:

@@ -499,7 +499,8 @@ from vtpu_torch.scheduler.__main__ import main
 from vtpu_torch.util.client import FakeKubeClient
 
 want = sys.argv[1].split(",")
-argv = sys.argv[2:]
+n_leases = int(sys.argv[2])  # a group coordinator takes its leases in turn
+argv = sys.argv[3:]
 
 
 def port():
@@ -520,7 +521,7 @@ while time.time() < deadline:
                      v["spec"]["leaseTransitions"])
                     for k, v in client._leases.items())
     if all(w in names for w in want if w != "lease") and (
-            "lease" not in want or leases):
+            len(leases) >= n_leases):
         break
     time.sleep(0.05)
 print(json.dumps({"threads": names, "leases": leases}), flush=True)
@@ -552,8 +553,8 @@ def test_daemon_runs_what_cmd_scheduler_runs(want, argv, env, leases):
     shard group under VTPU_SHARD_GROUPS), and a period above 0 starts the
     rebalancer or the migration planner."""
     out = subprocess.run(
-        [sys.executable, "-c", _DAEMON, want, *argv], cwd=REPO,
-        capture_output=True, text=True, timeout=120,
+        [sys.executable, "-c", _DAEMON, want, str(len(leases)), *argv],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
         env=dict(os.environ, PYTHONPATH=REPO, POD_NAME="sched-0", **env))
     assert out.returncode == 0, out.stderr[-2000:]
     got = json.loads(out.stdout.strip().splitlines()[-1])

@@ -21,10 +21,14 @@ import time
 import pytest
 
 import vtpu.enforce.region as jax_region
+from tests import torch_jaxlib
 from tests.torch_timing import timed
 from vtpu.enforce.region import RegionView as JaxRegionView
 from vtpu_torch import api, native
 from vtpu_torch.enforce.region import RegionView
+
+# each test of a heavy file takes tests/torch_timing.py's lock
+pytest_plugins = ["tests.torch_timing"]
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MS = 1_000_000  # ns
@@ -240,21 +244,15 @@ def libs():
 
 @pytest.fixture(scope="module")
 def jax_shim(tmp_path_factory):
-    """The JAX shim's test pieces, built into a directory of this module's
-    own (never lib/vtpu/build/, which the JAX package's tests build)."""
-    build = str(tmp_path_factory.mktemp("jax-shim"))
-    targets = [os.path.join(build, t) for t in (
-        "shim_test", "libvtpu.so", "mock_pjrt.so", "libvtpucore.so")]
-    subprocess.run(["make", "-C", os.path.join(REPO, "lib", "vtpu"),
-                    f"BUILD={build}"] + targets, check=True,
-                   capture_output=True, timeout=300)
-    return build
+    """The JAX shim's test pieces (tests/torch_jaxlib.py)."""
+    return torch_jaxlib.build(tmp_path_factory)
 
 
-@pytest.fixture(autouse=True)
-def no_pinned_core():
-    """Every test here times its children: none runs while another test
-    worker pins busy processes to a core (tests/torch_timing.py)."""
+@pytest.fixture(autouse=True, scope="module")
+def quiet_host():
+    """Every test here times its children: the module runs while no other
+    test worker pins busy processes to a core, keeps every core busy or
+    runs a heavy test file (tests/torch_timing.py)."""
     with timed():
         yield
 

@@ -15,6 +15,11 @@ from __future__ import annotations
 
 from prometheus_client import Counter, Gauge, Histogram
 
+#: the JAX gateway's families -> the port's
+METRIC_NAMES = {f"vTPUGateway{f}": f"vGPUGateway{f}" for f in (
+    "QueueDepth", "BatchSize", "StepLatency", "Shed", "Recompiles",
+    "Replicas")}
+
 GW_QUEUE_DEPTH = Gauge(
     "vGPUGatewayQueueDepth",
     "requests queued in the gateway awaiting a batch slot",

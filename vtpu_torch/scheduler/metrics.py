@@ -40,6 +40,47 @@ if TYPE_CHECKING:  # import-cycle guard: core times filter() against
 
 MB = 1024 * 1024
 
+#: every metric family the JAX scheduler's process exports (its module's
+#: and SchedulerCollector's) -> the port's family: ``vTPU`` -> ``vGPU``;
+#: ``nodeTPUMemoryPercentage`` keeps the reference's name (below)
+METRIC_NAMES = {
+    "vTPUFilterLatency": "vGPUFilterLatency",
+    "vTPUCommitQueueDepth": "vGPUCommitQueueDepth",
+    "vTPUCommitLatency": "vGPUCommitLatency",
+    "vTPUCommitRetries": "vGPUCommitRetries",
+    "vTPUCommitFailures": "vGPUCommitFailures",
+    "vTPUDecideShards": "vGPUDecideShards",
+    "vTPUDecideShardFilters": "vGPUDecideShardFilters",
+    "vTPUDecideMultiShardFilters": "vGPUDecideMultiShardFilters",
+    "vTPUDecideLockTimeouts": "vGPUDecideLockTimeouts",
+    "vTPUAdmissionBatchSize": "vGPUAdmissionBatchSize",
+    "vTPUAdmissionShed": "vGPUAdmissionShed",
+    "vTPUCommitCoalesced": "vGPUCommitCoalesced",
+    "vTPUCommitBulkWrites": "vGPUCommitBulkWrites",
+    "vTPURebalanceGrows": "vGPURebalanceGrows",
+    "vTPURebalanceShrinks": "vGPURebalanceShrinks",
+    "vTPURebalanceSkippedHeadroom": "vGPURebalanceSkippedHeadroom",
+    "vTPUMigrationCandidates": "vGPUMigrationCandidates",
+    "vTPUPreemptions": "vGPUPreemptions",
+    "vTPUPreemptionVictims": "vGPUPreemptionVictims",
+    "vTPUPreemptionFailed": "vGPUPreemptionFailed",
+    "vTPUMigrations": "vGPUMigrations",
+    "vTPUMigrateBlackoutSeconds": "vGPUMigrateBlackoutSeconds",
+    "vTPUGangGroupTakeovers": "vGPUGangGroupTakeovers",
+    "vTPUDeviceMemoryLimit": "vGPUDeviceMemoryLimit",
+    "vTPUDeviceMemoryAllocated": "vGPUDeviceMemoryAllocated",
+    "vTPUDeviceCoreLimit": "vGPUDeviceCoreLimit",
+    "vTPUDeviceCoreAllocated": "vGPUDeviceCoreAllocated",
+    "vTPUDeviceSharedNum": "vGPUDeviceSharedNum",
+    "nodeTPUMemoryPercentage": "nodeTPUMemoryPercentage",
+    "vTPUPodsDeviceAllocated": "vGPUPodsDeviceAllocated",
+    "vTPUPodWatchHealthy": "vGPUPodWatchHealthy",
+    "vTPUShardGroupOwner": "vGPUShardGroupOwner",
+    "vTPUShardGroupTransitions": "vGPUShardGroupTransitions",
+    "vTPUShardGroupOrdinalCollisions": "vGPUShardGroupOrdinalCollisions",
+}
+
+
 # Filter is on every pod's critical scheduling path; the buckets span
 # "overlay snapshot of a few candidates" (~100us) to "something is
 # O(cluster) again" (seconds) so a regression moves mass visibly.
