@@ -63,6 +63,24 @@ built:
    shows beyond the region's charge is at most 2% of the quota, and the
    charge beyond the card's growth at most 5% (so a blanket allowance
    fails); the first step's time and the first launches' cost are printed;
+   after F6 (before the neighbour), phase (r), code memory
+   (``vtpu_torch.bench.codemem``): a child under ``libvgpu.so`` at a 2 GiB
+   quota, with no torch, reaches each of the nine routes that load code
+   (``cuModuleLoad``, ``cuModuleLoadData``, ``cuModuleLoadDataEx`` on PTX,
+   ``cuModuleLoadFatBinary``, ``cuLibraryLoadData``,
+   ``cuLibraryLoadFromFile``, ``cuLibraryGetKernel`` with
+   ``cuKernelGetFunction``, the globals, a tenant's own ``cuFuncLoad``)
+   through ``cuGetProcAddress_v2`` on a module of 256 MiB of ``__device__``
+   globals (``vtpu_torch/csrc/codemem_fixture.cu``, built with nvcc for
+   sm_90a beside the gcc build), launches its kernel and unloads it: after
+   the launch and after the unload the card's growth against the region's
+   charge holds F6's two bounds, and where each route's growth landed
+   (load, look-up, launch) is printed; 50 load/unload cycles end within
+   them, the charge within them of where it began; a 3 GiB module is
+   refused with CUDA_ERROR_OUT_OF_MEMORY (the card back within 256 MiB,
+   the charge unmoved, a later load served), and a second child under
+   ``ACTIVE_OOM_KILLER`` dies by SIGKILL at that load; the region is clean
+   after exit;
    Phases 6 and 7 run one child on the card at a time; each next child
    (and phase 8's children after the last) is started ahead of its turn
    and waits, before its first CUDA call, for the parent to read the card
@@ -389,7 +407,7 @@ T_IMPORT = time.perf_counter()
 import torch  # noqa: E402
 
 from vtpu_torch import api, dashboards, native  # noqa: E402
-from vtpu_torch.bench import memspace  # noqa: E402
+from vtpu_torch.bench import codemem, memspace  # noqa: E402
 from vtpu_torch.enforce import install  # noqa: E402
 from vtpu_torch.enforce.region import (  # noqa: E402
     FEEDBACK_BLOCK,
@@ -1217,6 +1235,64 @@ def run_fill_phase(name: str, case_name: str, quota: int,
             "card_delta_bytes": held, "leakage": held / quota - 1,
             "unaccounted_bytes": held - region_used,
             "first_step_ms": r["first_step_ms"], "step_ms": r["step_ms"]}
+
+
+# ------------------------------------------------------ (r) code memory.
+def codemem_children(fixtures: str) -> dict:
+    """phase (r)'s two children (vtpu_torch.bench.codemem), started ahead
+    and held before their first CUDA call"""
+    tmp = tempfile.mkdtemp(prefix="vgpu-smoke-codemem-")
+    children = codemem.start(tmp, "cuda", run_lock_dir(), fixtures=fixtures)
+    for child in children.values():
+        child.tmp = tmp
+        _HELD.append(child)
+    return children
+
+
+def codemem_phase(name: str, children: dict) -> dict:
+    """Phase (r), alone on the card (it reads the card's memory): every
+    entry point that loads code charged against the card's growth, a load
+    past the quota refused (killed under ACTIVE_OOM_KILLER), an unload's
+    charge given back; see the module docstring."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    total = torch.cuda.mem_get_info()[1]
+    try:
+        res = codemem.phase(children, lambda: total - card_free())
+    finally:
+        for child in children.values():
+            child.kill()
+        shutil.rmtree(children["pod"].tmp, ignore_errors=True)
+    q = res["quota_bytes"]
+    print(f"(r) code memory at a {q} B quota, a {res['fixture_bytes']} B "
+          f"module: footprint mode {res['footprint_mode']}, context "
+          f"{res['context_charge']} B in {res['context_ms']:.1f} ms; every "
+          f"entry point hooked {all(res['hooked'].values())}; on {name}",
+          flush=True)
+    for route, r in res["routes"].items():
+        (grew, charged), (grew2, charged2) = r["open"], r["closed"]
+        print(f"(r) {route}: charged {r['charged']} (lands at the "
+              f"{r['lands']}); the card grew by {r['card_grew']} B; after "
+              f"the launch unaccounted {grew - charged} B, over-charged "
+              f"{charged - grew} B; the unload released {r['released']} B, "
+              f"then unaccounted {grew2 - charged2} B, over-charged "
+              f"{charged2 - grew2} B; on {name}", flush=True)
+    churn, ref = res.get("churn", {}), res.get("refusal", {})
+    print(f"(r) churn: {churn.get('cycles')} load/unload cycles of "
+          f"{churn.get('route')} in {churn.get('seconds', 0):.3f} s, "
+          f"(card growth, charge) {churn.get('start')} -> "
+          f"{churn.get('end')}; a {codemem.BIG_BYTES} B module: rc "
+          f"{ref.get('rc')}, (card growth, charge) {ref.get('before')} -> "
+          f"{ref.get('after')}, a later load and unload rc "
+          f"{ref.get('later_rc')}; under ACTIVE_OOM_KILLER rc "
+          f"{res.get('killer_rc')} ({res.get('killer_oom_events')} refusal "
+          f"in its region); counters {res.get('counters')}; gates "
+          f"{res['gates']}; errors {res['errors']}; on {name}", flush=True)
+    failed = [k for k, ok in res["gates"].items() if not ok]
+    check(res["ok"], f"(r) failed gates {failed}: {res['errors']}\n"
+          f"{res.get('pod_stderr', '')[-2000:]}")
+    return {"phase": "(r) code memory", **{
+        k: v for k, v in res.items() if not k.endswith("_stderr")}}
 
 
 # ---------------------------- F1: a neighbour inside a context's measure.
@@ -4524,6 +4600,10 @@ NATIVE = [
     {"name": "libnvidia-ml.so.1 (mock, CPU tests only)", "route": "gcc",
      "source": "vtpu_torch/csrc/mock_nvml.c", "replaces":
      "vtpu/plugin/tpulib.py:65"},
+    {"name": "codemem.{cubin,fatbin,ptx}, codemem_3g.cubin (phase (r)'s "
+     "module)", "route": "nvcc", "source":
+     "vtpu_torch/csrc/codemem_fixture.cu", "replaces":
+     "lib/vtpu/mock_pjrt.c:636"},
 ] + [{"name": f"{prog} (the native test plane, CPU tests only)",
       "route": "gcc", "source": f"vtpu_torch/csrc/test/{prog}.c",
       "replaces": f"lib/vtpu/test/{ref}.c:1"}
@@ -4578,7 +4658,8 @@ def main() -> int:
     t0 = time.perf_counter()
     side = futures.ThreadPoolExecutor(len(ALLOCATORS) + 1)
     build = side.submit(
-        lambda: (native.build_all(), time.perf_counter() - t0))
+        lambda: ({**native.build_all(), **native.cuda_fixtures()},
+                 time.perf_counter() - t0))
     beside = {}
 
     def start_beside():
@@ -4653,6 +4734,9 @@ def main() -> int:
     steps.append((lambda: run_fill_child("1.1", FILL_QUOTAS[0]),
                   lambda child: run_fill_phase(name, "1.1", FILL_QUOTAS[0],
                                                child)))
+    fixtures = os.path.dirname(libs["codemem.cubin"])
+    steps.append((lambda: codemem_children(fixtures),
+                  lambda children: codemem_phase(name, children)))
     steps.append((neighbour_children,
                   lambda pair: neighbour_phase(name, pair)))
     steps += [quota_step(case_name, conf) for case_name in ("1.1", "1.2")

@@ -637,3 +637,68 @@ def test_host_ledger_charges_refuses_and_uncharges(tmp_path, libs,
     assert third["free"] == [0, 0, 0] and held_third == 0
     with RegionView(cache) as view:
         assert view.procs() == [] and view.host_used() == 0
+
+
+ABI = textwrap.dedent(r"""
+    import ctypes, json, os
+    from ctypes import CFUNCTYPE, POINTER, byref, c_char_p, c_int, c_uint64
+    from ctypes import c_void_p
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    vg = ctypes.CDLL(os.environ["LD_PRELOAD"])
+    gpa2 = CFUNCTYPE(c_int, c_char_p, POINTER(c_void_p), c_int, c_uint64,
+                     POINTER(c_int))(ctypes.cast(cu.cuGetProcAddress_v2,
+                                                 c_void_p).value)
+
+    def addr(f):
+        return ctypes.cast(f, c_void_p).value
+
+    def via2(version):
+        p, st = c_void_p(), c_int(-1)
+        assert gpa2(b"cuCtxSynchronize", byref(p), version, 0,
+                    byref(st)) == 0 and st.value == 0
+        return p.value
+
+    v13 = via2(13000)
+    sync_v2 = CFUNCTYPE(c_int, c_void_p)(v13)
+    print(json.dumps({
+        "12080": via2(12080) == addr(vg.cuCtxSynchronize),
+        "13000": [v13 == addr(vg.cuCtxSynchronize),
+                  v13 == addr(cu.cuCtxSynchronize_v2)],
+        "v2_with_a_context": sync_v2(0x100)}))
+""")
+
+
+def test_a_variant_of_another_abi_is_handed_out_unhooked(tmp_path, libs):
+    """F17: asked for cuCtxSynchronize at CUDA 13.0, the driver answers with
+    cuCtxSynchronize_v2, which takes a context. The hook of the old ABI is
+    not handed out for it (it called the new entry point without its
+    context: CUDA_ERROR_CONTEXT_IS_DESTROYED on the H100's CUDA 13.0
+    driver); at 12.8 the hook is."""
+    env, _ = child_env(tmp_path)
+    proc = subprocess.run([sys.executable, "-c", ABI], env=env,
+                          capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout)
+    assert out["12080"]  # at 12.8 the hook
+    # at 13.0 the mock's _v2, unhooked, and it runs with its context
+    assert out["13000"] == [False, True]
+    assert out["v2_with_a_context"] == 0
+
+
+def test_the_abi_probe_lists_the_variant_of_another_abi(libs):
+    """``python -m vtpu_torch.bench.abi`` on the mock driver, without the
+    interposer: of every hooked variant, only cuCtxSynchronize at 13.0 is
+    answered with another ABI (the card's CUDA 13.0 driver answers the same,
+    PERF.md)."""
+    env = {k: v for k, v in os.environ.items() if k != "LD_PRELOAD"}
+    env["LD_LIBRARY_PATH"] = native.mock_cuda_dir()
+    proc = subprocess.run([sys.executable, "-m", "vtpu_torch.bench.abi"],
+                          env=env, capture_output=True, text=True,
+                          timeout=60)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout)
+    assert out["driver_version"] == 12080 and out["variants"] >= 70
+    assert out["other_abi"] == {"12080": [], "13000": [{
+        "base": "cuCtxSynchronize", "hook": "cuCtxSynchronize",
+        "driver": "cuCtxSynchronize_v2"}]}

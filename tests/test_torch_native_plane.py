@@ -17,7 +17,10 @@ region modes.
   agree, the host ledger is 0, no table drop, nothing in flight, every
   span's charge in the region, every call in the profile; while they run
   the footprint charge is the context's at every re-read, F12),
-  ``tabledrop`` and ``hostquota``.
+  ``tabledrop``, ``hostquota`` and ``codeload`` (8 threads x 400 module
+  loads, look-ups, first launches and unloads in context mode, each load
+  given the handle an unload freed: every call measured, every unload's
+  charge given back, the context's charge exact at the end, F16).
 
 A sanitizer's report fails the run (``halt_on_error``; no suppressions:
 none is needed). Then the profile's overhead gate
@@ -50,7 +53,7 @@ VARIANTS = ["plain", "san", "tsan"]
 REGION_MODES = ["", "prof", "gatestress", "resizestress", "hostledger"]
 PORT_REGION_MODES = REGION_MODES + ["notebatch"]
 INTERPOSER_MODES = [(), ("churn", "50"), ("churn",), ("tabledrop",),
-                    ("hostquota",)]
+                    ("hostquota",), ("codeload",)]
 SANITIZER_REPORTS = ("ERROR: AddressSanitizer", "ERROR: LeakSanitizer",
                      "WARNING: ThreadSanitizer", "runtime error:")
 

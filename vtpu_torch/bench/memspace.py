@@ -120,7 +120,7 @@ def bounds(b: int = PLACEMENT_BYTES) -> Dict[str, float]:
 
 # ----------------------------------------------------------------- parent
 
-def _mock_env(root: str) -> Dict[str, str]:
+def mock_env(root: str) -> Dict[str, str]:
     """the mock driver and NVML for the child"""
     native.build_all()
     env = {k: os.environ.get(k, v) for k, v in MOCK_ENV.items()}
@@ -161,7 +161,7 @@ class Probe:
             ("CUDA_DEVICE_", "CUDA_HOST_", "CUDA_DISABLE", "LD_PRELOAD",
              "PYTORCH_CUDA_ALLOC_CONF"))}
         if backend == "mock":
-            env.update(_mock_env(root))
+            env.update(mock_env(root))
         env.update({
             "LD_PRELOAD": native.interposer(),
             api.ENV_SHARED_CACHE: self.cache,
@@ -249,7 +249,7 @@ def main(argv: Optional[list] = None) -> int:
 
 # ------------------------------------------------------------------ child
 
-class _Driver:
+class Driver:
     """The driver's entry points through ``cuGetProcAddress_v2``, as the
     CUDA 12 runtime resolves them (so the interposer's hooks answer)."""
 
@@ -356,7 +356,7 @@ def _cuda_child(enf, charge) -> Dict:
 
     import torch
 
-    drv = _Driver()
+    drv = Driver()
     n = PLACEMENT_BYTES // 4
     cuda = torch.device("cuda")
     res: Dict = {"memory_kinds": ["device", "pinned_host", "unpinned_host",
@@ -460,7 +460,7 @@ def _mock_child(enf, charge) -> Dict:
     driver (no timings: it moves no bytes over a link)."""
     import ctypes as ct
 
-    drv = _Driver()
+    drv = Driver()
     u64p, vpp = ct.POINTER(ct.c_uint64), ct.POINTER(ct.c_void_p)
     retain = drv.fn("cuDevicePrimaryCtxRetain", vpp, ct.c_int)
     alloc = drv.fn("cuMemAlloc", u64p, ct.c_size_t)

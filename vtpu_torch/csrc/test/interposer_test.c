@@ -34,6 +34,13 @@
  *   hostquota  the host ledger through cuMemHostAlloc, cuMemAllocHost_v2,
  *              cuMemHostRegister_v2 and host-located cuMemCreate under
  *              CUDA_HOST_MEMORY_LIMIT;
+ *   codeload   8 threads, each loading a module, looking its function up,
+ *              launching it and unloading the module 400 times, where NVML
+ *              lists every process as one (CONTEXT mode) and the mock
+ *              driver hands a freed module's handle to the next load: every
+ *              load, look-up and first launch is measured, every unload
+ *              gives back what its module was charged, and at quiesce the
+ *              region holds the context's charge exactly;
  *   profbench  the deployed charge path (cuMemAlloc_v2 + cuMemFree_v2
  *              through the interposer), a launch and a copy, profile off
  *              against on, the minimum over attempts, and the profile
@@ -72,12 +79,15 @@
 
 /* libvgpu.so's own exports */
 void vgpu_footprint(int dev, uint64_t out[8]);
+void vgpu_footprint_launches(uint64_t out[6]);
+void vgpu_code_memory(uint64_t out[8]);
 void vgpu_flush_launches(void);
 int vgpu_span_stream(CUstream s, uint64_t out[3]);
 /* the mock driver's counters */
 unsigned long mock_cuda_copy_calls(const char *symbol);
 unsigned long mock_cuda_launches(void);
 unsigned long mock_cuda_host_calls(void);
+unsigned long mock_cuda_code_live(void);
 
 static void *g_vg; /* libvgpu.so */
 static void *g_cu; /* the mock libcuda.so.1 */
@@ -627,6 +637,112 @@ static int hostquota_main(void) {
   return 0;
 }
 
+/* ------------------------------------------------------------ codeload */
+
+#define CODE_THREADS 8
+#define CODE_ITERS 400
+#define CODE_LOAD_MIB 16 /* a module's load */
+#define CODE_FUNC_MIB 4  /* its function's, at its first launch */
+
+typedef struct {
+  pthread_barrier_t *go;
+  int failures;
+} code_ctx_t;
+
+static void *codeload_thread(void *arg) {
+  code_ctx_t *c = arg;
+  gpa2_fn gpa = (gpa2_fn)VG(cuGetProcAddress_v2);
+  pthread_barrier_wait(c->go);
+  __typeof__(&cuModuleLoadData) load = resolve(gpa, "cuModuleLoadData");
+  __typeof__(&cuModuleGetFunction) get = resolve(gpa, "cuModuleGetFunction");
+  __typeof__(&cuLaunchKernel) launch = resolve(gpa, "cuLaunchKernel");
+  __typeof__(&cuModuleUnload) unload = resolve(gpa, "cuModuleUnload");
+  static const char image[] = "a module's image";
+  for (int i = 0; i < CODE_ITERS; i++) {
+    CUmodule mod = NULL;
+    CUfunction f = NULL;
+    if (load(&mod, image) != CUDA_SUCCESS) {
+      c->failures++;
+      continue;
+    }
+    FAIL_IF(c, get(&f, mod, "codemem_touch") != CUDA_SUCCESS);
+    FAIL_IF(c, launch(f, 1, 1, 1, 1, 1, 1, 0, NULL, NULL, NULL) !=
+                   CUDA_SUCCESS);
+    FAIL_IF(c, unload(mod) != CUDA_SUCCESS);
+  }
+  return NULL;
+}
+
+static int codeload_main(void) {
+  setup("codeload", 1, 64);
+  setenv("MOCK_GPU_PROCS_SHARED", "1", 1);
+  setenv("MOCK_CUDA_REUSE_HANDLES", "1", 1);
+  char bytes[32];
+  snprintf(bytes, sizeof(bytes), "%dm", CODE_LOAD_MIB);
+  setenv("MOCK_CUDA_LOAD_BYTES", bytes, 1);
+  snprintf(bytes, sizeof(bytes), "%dm", CODE_FUNC_MIB);
+  setenv("MOCK_CUDA_FUNC_BYTES", bytes, 1);
+  setenv("CUDA_DEVICE_MEMORY_LIMIT", "1g", 1);
+  /* a neighbour on the card already (this harness's parent), listed as
+   * the same pid */
+  char path[4400], line[64];
+  snprintf(path, sizeof(path), "%s/procs/%d", g_dir, (int)getppid());
+  snprintf(line, sizeof(line), "%d 0\n", (int)getppid());
+  write_file(path, line);
+  load();
+  CUcontext ctx = NULL;
+  CHECK(VG(cuDevicePrimaryCtxRetain)(&ctx, 0) == CUDA_SUCCESS);
+  uint64_t mode = 0;
+  CHECK(footprint_charge(&mode) == 64 * MiB);
+  CHECK(mode == 3); /* NVML cannot tell the process apart */
+  pthread_barrier_t go;
+  CHECK(pthread_barrier_init(&go, NULL, CODE_THREADS) == 0);
+  code_ctx_t ctxs[CODE_THREADS];
+  pthread_t th[CODE_THREADS];
+  for (int t = 0; t < CODE_THREADS; t++) {
+    ctxs[t] = (code_ctx_t){.go = &go};
+    CHECK(pthread_create(&th[t], NULL, codeload_thread, &ctxs[t]) == 0);
+  }
+  for (int t = 0; t < CODE_THREADS; t++) {
+    CHECK(pthread_join(th[t], NULL) == 0);
+    CHECK(ctxs[t].failures == 0);
+  }
+  pthread_barrier_destroy(&go);
+  CHECK(VG(cuCtxSynchronize)() == CUDA_SUCCESS);
+
+  /* every load, look-up and first launch was measured, each cycle anew:
+   * an unload forgot its module's keys, whose handle the next load took */
+  const uint64_t cycles = (uint64_t)CODE_THREADS * CODE_ITERS;
+  uint64_t first[6], code[8];
+  VG(vgpu_footprint_launches)(first);
+  VG(vgpu_code_memory)(code);
+  CHECK(first[0] == 3 * cycles);
+  CHECK(first[3] == 0); /* no reading shrank */
+  CHECK(first[2] == cycles * CODE_LOAD_MIB * MiB);
+  CHECK(first[1] == cycles * CODE_FUNC_MIB * MiB);
+  CHECK(code[0] == cycles && code[1] == 0 && code[2] == cycles);
+  CHECK(code[3] == cycles * (CODE_LOAD_MIB + CODE_FUNC_MIB) * MiB);
+  CHECK(code[4] == 0 && code[5] == 0 && code[6] == 0 && code[7] == 0);
+  CHECK(CU(mock_cuda_code_live)() == 0);
+  /* the region holds the context's charge, exactly */
+  vtpu_shared_region_t *r = region();
+  CHECK(footprint_charge(NULL) == 64 * MiB);
+  CHECK(vtpu_region_used(r, 0) == 64 * MiB);
+  uint64_t fast[VTPU_MAX_DEVICES], exact[VTPU_MAX_DEVICES];
+  vtpu_region_used_fast(r, fast);
+  vtpu_region_used_all(r, exact);
+  for (int d = 0; d < VTPU_MAX_DEVICES; d++) CHECK(fast[d] == exact[d]);
+  CHECK(r->reserved2 == 1); /* context mode, said once: nothing else */
+  CHECK(r->prof_pressure[VTPU_PROF_PK_TABLE_DROPS] == 0);
+  CHECK(vtpu_region_header_ok(r));
+  vtpu_region_close(r);
+  cleanup();
+  printf("interposer_test codeload OK (%d threads x %d loads, %llu calls "
+         "measured)\n",
+         CODE_THREADS, CODE_ITERS, (unsigned long long)first[0]);
+  return 0;
+}
+
 /* ----------------------------------------------------------- profbench */
 
 /* best ns per iteration of `body` over `iters`, the minimum of `attempts`,
@@ -752,6 +868,7 @@ int main(int argc, char **argv) {
   if (strcmp(mode, "churn") == 0) return churn_main(argc >= 3 ? argv[2] : "");
   if (strcmp(mode, "tabledrop") == 0) return tabledrop_main();
   if (strcmp(mode, "hostquota") == 0) return hostquota_main();
+  if (strcmp(mode, "codeload") == 0) return codeload_main();
   if (strcmp(mode, "profbench") == 0) return profbench_main();
   if (*mode) {
     fprintf(stderr, "interposer_test: unknown mode %s\n", mode);

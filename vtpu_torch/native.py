@@ -21,6 +21,11 @@ missing or older than one of its sources, and a failed build raises.
   the native test plane (``csrc/test/``), programs that drive the shared
   region and ``libvgpu.so`` on the mock driver from many threads.
 
+:func:`cuda_fixtures` builds the code-memory probe's CUDA module
+(``codemem_fixture.cu``) with nvcc for sm_90a, as a cubin, a fatbin and
+PTX, under ``_build/codemem/``: only on a machine with the CUDA toolkit,
+never in :func:`build_all`.
+
 :func:`sanitized` builds the same set again (all but the validator) under
 ``_build/san/`` with ASan+UBSan or ``_build/tsan/`` with ThreadSanitizer,
 ``lib/vtpu/Makefile``'s ``sanitize`` and ``tsan`` rule: a set never shadows
@@ -102,6 +107,32 @@ def _stale(out: str, deps: List[str]) -> bool:
     return any(os.path.getmtime(os.path.join(CSRC, d)) > built for d in deps)
 
 
+def _compile(out: str, deps: List[str], command) -> str:
+    """``out`` built by ``command(tmp)`` (an argv writing the file tmp) when
+    it is missing or older than one of ``deps`` (under CSRC), under a file
+    lock, renamed into place whole; a failed build raises."""
+    if not _stale(out, deps):
+        return out
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    lock_path = os.path.join(os.path.dirname(out),
+                             f".{os.path.basename(out)}.lock")
+    with open(lock_path, "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not _stale(out, deps):
+            return out  # another process built it while we waited
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = command(tmp)
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+            raise NativeBuildFailure(
+                f"building {os.path.relpath(out, BUILD)} failed "
+                f"({' '.join(cmd)}):\n{proc.stderr}")
+        os.replace(tmp, out)
+    return out
+
+
 def build(target: str, variant: str = "") -> str:
     """Path of the built library or program ``target`` (a key of
     :data:`TARGETS`), compiling it first when it is missing or stale; with a
@@ -114,28 +145,54 @@ def build(target: str, variant: str = "") -> str:
     cc = env_str("CC", "gcc")
     if shutil.which(cc) is None:
         raise NativeBuildFailure(f"{cc} not found; cannot build {target}")
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    lock_path = os.path.join(os.path.dirname(out),
-                             f".{os.path.basename(out)}.lock")
-    with open(lock_path, "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if not _stale(out, sources + headers):
-            return out  # another process built it while we waited
-        tmp = f"{out}.{os.getpid()}.tmp"
-        link = [] if target in EXECUTABLES else SOFLAGS
-        flags = SANITIZERS[variant] if variant else CFLAGS
-        cmd = ([cc] + flags + link + ["-o", tmp]
-               + [os.path.join(CSRC, s) for s in sources]
-               + ldflags)
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-            raise NativeBuildFailure(
-                f"building {target} failed ({' '.join(cmd)}):\n"
-                f"{proc.stderr}")
-        os.replace(tmp, out)
-    return out
+    link = [] if target in EXECUTABLES else SOFLAGS
+    flags = SANITIZERS[variant] if variant else CFLAGS
+    return _compile(out, sources + headers, lambda tmp: (
+        [cc] + flags + link + ["-o", tmp]
+        + [os.path.join(CSRC, s) for s in sources] + ldflags))
+
+
+#: the code-memory probe's fixture (vtpu_torch/bench/codemem.py): a module
+#: whose __device__ globals hold PARTS x PART_MIB MiB and one kernel that
+#: writes them; output -> (nvcc's flags, parts, MiB a part)
+FIXTURE = "codemem_fixture.cu"
+FIXTURES: Dict[str, Tuple[List[str], int, int]] = {
+    "codemem.cubin": (["-cubin", "-arch=sm_90a"], 1, 256),
+    "codemem.fatbin": (["-fatbin", "-gencode=arch=compute_90a,code=sm_90a"],
+                       1, 256),
+    "codemem.ptx": (["-ptx", "-arch=compute_90a"], 1, 256),
+    "codemem_3g.cubin": (["-cubin", "-arch=sm_90a"], 3, 1024),
+}
+
+
+def nvcc() -> str:
+    """The CUDA compiler: ``nvcc`` on PATH, else the toolkit's
+    ``/usr/local/cuda/bin/nvcc``; raises where there is none."""
+    for cand in (shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"):
+        if cand and os.access(cand, os.X_OK):
+            return cand
+    raise NativeBuildFailure("nvcc not found; the code-memory fixture "
+                             "builds only where the CUDA toolkit is")
+
+
+def cuda_fixtures() -> Dict[str, str]:
+    """The fixture's outputs (:data:`FIXTURES`) built with nvcc for sm_90a
+    under ``_build/codemem/`` at first use, one nvcc each, all at once;
+    output -> path. Not part of :func:`build_all`, which runs on hosts
+    without the CUDA toolkit."""
+    compiler = nvcc()
+    src = os.path.join(CSRC, FIXTURE)
+
+    def one(name: str) -> str:
+        flags, parts, mib = FIXTURES[name]
+        return _compile(os.path.join(BUILD, "codemem", name), [FIXTURE],
+                        lambda tmp: [compiler] + flags + [
+                            f"-DCODEMEM_PARTS={parts}",
+                            f"-DCODEMEM_PART_MIB={mib}", "-o", tmp, src])
+
+    with futures.ThreadPoolExecutor(len(FIXTURES)) as pool:
+        done = {name: pool.submit(one, name) for name in FIXTURES}
+        return {name: f.result() for name, f in done.items()}
 
 
 def core_library() -> str:
