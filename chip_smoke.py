@@ -62,7 +62,10 @@ built:
    and fills its quota: the card grows by at most 1.02x the quota, what it
    shows beyond the region's charge is at most 2% of the quota, and the
    charge beyond the card's growth at most 5% (so a blanket allowance
-   fails); the first step's time and the first launches' cost are printed;
+   fails); the first step's time and the first launches' cost are printed,
+   and the residue's split: the pages the card grew by across allocations
+   that are not whole 2 MiB pages and across streams made (a cuDNN
+   handle's), each measured and charged as footprint;
    after F6 (before the neighbour), phase (r), code memory
    (``vtpu_torch.bench.codemem``): a child under ``libvgpu.so`` at a 2 GiB
    quota, with no torch, reaches each of the nine routes that load code
@@ -80,7 +83,15 @@ built:
    refused with CUDA_ERROR_OUT_OF_MEMORY (the card back within 256 MiB,
    the charge unmoved, a later load served), and a second child under
    ``ACTIVE_OOM_KILLER`` dies by SIGKILL at that load; the region is clean
-   after exit;
+   after exit; then phase (s), CUDA 13.0's entry points
+   (``vtpu_torch.bench.cuda13``): a child under ``libvgpu.so`` resolves
+   ``cuCtxSynchronize`` at 13000 and is handed the interposer's
+   ``cuCtxSynchronize_v2``, whose call (rc 0) ends the span an f32 GEMM
+   opened and charges it within 0.8-1.25x of the GEMM's CUDA-event time,
+   and copies through each variant of ``cuMemcpyBatchAsync`` and
+   ``cuMemcpy3DBatchAsync`` (12080 and 13000, with and without the
+   per-thread stream): each hooked, its bytes arrived, one TRANSFER each
+   with them in the region;
    Phases 6 and 7 run one child on the card at a time; each next child
    (and phase 8's children after the last) is started ahead of its turn
    and waits, before its first CUDA call, for the parent to read the card
@@ -407,7 +418,7 @@ T_IMPORT = time.perf_counter()
 import torch  # noqa: E402
 
 from vtpu_torch import api, dashboards, native  # noqa: E402
-from vtpu_torch.bench import codemem, memspace  # noqa: E402
+from vtpu_torch.bench import codemem, cuda13, memspace  # noqa: E402
 from vtpu_torch.enforce import install  # noqa: E402
 from vtpu_torch.enforce.region import (  # noqa: E402
     FEEDBACK_BLOCK,
@@ -1223,6 +1234,13 @@ def run_fill_phase(name: str, case_name: str, quota: int,
           f"{held - region_used} B, over-charged {region_used - held} B; "
           f"first step {r['first_step_ms']:.1f} ms, then "
           f"{r['step_ms']:.1f} ms/step (host clock); on {name}", flush=True)
+    print(f"F6 case {case_name}: the residue split: the card grew "
+          f"{fp['small_alloc_pages']} B across allocations that are not "
+          f"whole pages ({fp['small_alloc_live']} B of them live) and "
+          f"{fp['stream_pages']} B across streams made, in "
+          f"{fp['object_calls']} calls measured; their pages charged "
+          f"{fp['page_charge']} B past the allocations' own; unaccounted "
+          f"{held - region_used} B; on {name}", flush=True)
     check(r["total"] == quota, f"F6 fill: mem_get_info total {r['total']}")
     check(region_used == r["used"] <= quota,
           f"F6 fill: charge {region_used} B past the quota")
@@ -1293,6 +1311,33 @@ def codemem_phase(name: str, children: dict) -> dict:
           f"{res.get('pod_stderr', '')[-2000:]}")
     return {"phase": "(r) code memory", **{
         k: v for k, v in res.items() if not k.endswith("_stderr")}}
+
+
+# ------------------------------------- (s) CUDA 13.0's entry points.
+def cuda13_phase(name: str) -> dict:
+    """Phase (s), alone on the card (vtpu_torch.bench.cuda13): a child
+    under libvgpu.so resolves cuCtxSynchronize at 13000 and is handed the
+    interposer's cuCtxSynchronize_v2, whose call (rc 0, with the context
+    and with NULL) ends the span an f32 GEMM opened and charges it within
+    0.8-1.25x of its CUDA-event time; each batch copy variant
+    (cuMemcpyBatchAsync and cuMemcpy3DBatchAsync at 12080 and 13000, with
+    and without the per-thread stream) is hooked, copies its bytes and is
+    one TRANSFER with them in the region, and a refused one an error."""
+    res = cuda13.run("cuda", run_lock_dir())
+    print(f"(s) CUDA 13.0: cuCtxSynchronize at 13000 hooked "
+          f"{res.get('sync_hooked')}; with the context and with NULL: rc "
+          f"{res.get('sync_rc')}, the span uncharged until it "
+          f"{res.get('uncharged_while_open')}, charged "
+          f"{res.get('sync_charged_ms')} ms at it against the GEMM's "
+          f"{res.get('kernel_ms', 0):.3f} ms; batch copies {res.get('batches')}"
+          f", copied {res.get('copied')}, a refused one rc "
+          f"{res.get('refused_rc')}, TRANSFER (calls, errors, bytes) "
+          f"+{res.get('transfer')}; gates {res['gates']}; on {name}",
+          flush=True)
+    failed = [k for k, ok in res["gates"].items() if not ok]
+    check(res["ok"], f"(s) failed gates {failed}: {res.get('stderr', '')}")
+    return {"phase": "(s) CUDA 13.0 entry points", **{
+        k: v for k, v in res.items() if k != "stderr"}}
 
 
 # ---------------------------- F1: a neighbour inside a context's measure.
@@ -4737,6 +4782,7 @@ def main() -> int:
     fixtures = os.path.dirname(libs["codemem.cubin"])
     steps.append((lambda: codemem_children(fixtures),
                   lambda children: codemem_phase(name, children)))
+    steps.append((lambda: None, lambda _: cuda13_phase(name)))
     steps.append((neighbour_children,
                   lambda pair: neighbour_phase(name, pair)))
     steps += [quota_step(case_name, conf) for case_name in ("1.1", "1.2")

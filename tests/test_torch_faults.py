@@ -244,6 +244,46 @@ CHILD = textwrap.dedent(r"""
                "hooked": hasattr(vg, "cuLibraryGetModule") and hooked(
                    "cuLibraryGetModule", "cuLibraryGetModule")}
         wait()
+    elif mode == "objects":  # streams and small allocations, then freed
+        # the first context, 64 MiB allocated, five streams (one with a
+        # priority) and 16 allocations of 2,064 B; then the streams
+        # destroyed and the small allocations freed
+        retain = CFUNCTYPE(c_int, POINTER(c_void_p), c_int)(
+            via2("cuDevicePrimaryCtxRetain"))
+        create = CFUNCTYPE(c_int, POINTER(c_void_p), c_uint)(
+            via2("cuStreamCreate"))
+        create_prio = CFUNCTYPE(c_int, POINTER(c_void_p), c_uint, c_int)(
+            via2("cuStreamCreateWithPriority"))
+        destroy = CFUNCTYPE(c_int, c_void_p)(via2("cuStreamDestroy", 4000))
+        ctx, p = c_void_p(), c_ulonglong()
+        assert retain(byref(ctx), 0) == 0
+        assert alloc(byref(p), 64 * MiB) == 0
+        streams = [c_void_p() for _ in range(5)]
+        for s in streams[:4]:
+            assert create(byref(s), 1) == 0
+        assert create_prio(byref(streams[4]), 1, -1) == 0
+        small = []
+        for _ in range(16):
+            assert alloc(byref(p), 2064) == 0
+            small.append(p.value)
+        objs = (c_uint64 * 5)()
+
+        def objects():
+            vg.vgpu_objects(0, objs)
+            return [int(x) if x < 1 << 63 else int(x) - (1 << 64)
+                    for x in objs]
+
+        out = {"hooked": [hooked(b, e) for b, e in (
+                   ("cuStreamCreate", "cuStreamCreate"),
+                   ("cuStreamCreateWithPriority",
+                    "cuStreamCreateWithPriority"))],
+               "footprint": footprint(), "objects": objects(),
+               "pid": os.getpid()}
+        wait()
+        out = {"destroyed": [destroy(s) for s in streams],
+               "freed": [free(h) for h in small],
+               "footprint": footprint(), "objects": objects()}
+        wait()
     elif mode == "streams":  # SECONDS WARMUP: two streams side by side
         import threading
         launch = CFUNCTYPE(c_int, c_void_p, c_uint, c_uint, c_uint, c_uint,
@@ -713,6 +753,58 @@ def test_memory_taken_at_first_launches_is_charged(tmp_path, libs):
         (20, 64 * MiB, 32 * MiB, 0)
     assert got["footprint"][2] == 200 * MiB + 64 * MiB + 32 * MiB
     assert got["info"][0] == 1024 * MiB - held
+
+
+def test_pages_of_streams_and_small_allocations_are_charged(tmp_path,
+                                                            libs):
+    """F6's residue (case 1.1's child held 10,328,316 B past its charge on
+    the H100: a cuDNN handle's four streams took a 2 MiB page each, and
+    cuBLAS's small allocations a page they were charged 132,096 B of;
+    PERF.md). Where NVML lists every process as one pid, a process that
+    makes five streams (each takes 2 MiB of the mock card) and 16
+    allocations of 2,064 B (carved from a 2 MiB page) is charged what the
+    card grew by, exactly: each such call is measured under the node's
+    lock, and the pages are charged past the small allocations' own
+    charges. After the streams are destroyed and the small allocations
+    freed, the charge is back where the card is. Before, the 12 MiB of
+    pages ran uncharged less the 33,024 B of the allocations."""
+    env, cache = child_env(tmp_path, MOCK_CUDA_CTX_BYTES="200m",
+                           MOCK_CUDA_STREAM_BYTES="2m", MOCK_CUDA_PAGE="2m",
+                           MOCK_GPU_PROCS_SHARED=1,
+                           **{api.ENV_DEVICE_MEMORY_LIMIT: "1g"})
+    mine = os.path.join(env["MOCK_GPU_PROCS"], str(os.getpid()))
+    _hold(mine, 100 * MiB)
+    proc = spawn(env, "objects")
+    card_file = None
+    try:
+        made = line(proc)
+        card_file = os.path.join(env["MOCK_GPU_PROCS"], str(made["pid"]))
+        held_made = slot_used(cache)[0]
+        with open(card_file) as f:
+            card_made = int(f.read().split()[1])
+        gone = ask(proc)
+        held_gone = slot_used(cache)[0]
+        with open(card_file) as f:
+            card_gone = int(f.read().split()[1])
+        _, err = proc.communicate("\n", timeout=60)
+        assert proc.returncode == 0, err
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        os.unlink(mine)
+    assert made["footprint"][0] == 3, made["footprint"]  # context mode
+    assert made["hooked"] == [True, True]
+    assert card_made == 200 * MiB + 64 * MiB + 5 * 2 * MiB + 2 * MiB
+    assert held_made == card_made
+    # 21 calls measured; the streams' 10 MiB and the page's 2 MiB; the
+    # small allocations' 33,024 B live; the pages' charge past them
+    assert made["objects"] == [21, 2 * MiB, 10 * MiB, 16 * 2064,
+                               12 * MiB - 16 * 2064], made["objects"]
+    assert gone["destroyed"] == [0] * 5 and gone["freed"] == [0] * 16
+    assert card_gone == 200 * MiB + 64 * MiB
+    assert held_gone == card_gone
+    assert gone["objects"] == [42, 0, 0, 0, 0], gone["objects"]
 
 
 def test_a_probe_outside_the_process_list_is_not_charged(tmp_path, libs):

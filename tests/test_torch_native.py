@@ -672,25 +672,29 @@ ABI = textwrap.dedent(r"""
 def test_a_variant_of_another_abi_is_handed_out_unhooked(tmp_path, libs):
     """F17: asked for cuCtxSynchronize at CUDA 13.0, the driver answers with
     cuCtxSynchronize_v2, which takes a context. The hook of the old ABI is
-    not handed out for it (it called the new entry point without its
+    never handed out for it (it called the new entry point without its
     context: CUDA_ERROR_CONTEXT_IS_DESTROYED on the H100's CUDA 13.0
-    driver); at 12.8 the hook is."""
+    driver). Since the _v2 has a hook of its own ABI, that hook is handed
+    out at 13.0 and runs with its context (tests/test_torch_abi13.py holds
+    what it does); at 12.8 the old ABI's hook."""
     env, _ = child_env(tmp_path)
     proc = subprocess.run([sys.executable, "-c", ABI], env=env,
                           capture_output=True, text=True, timeout=60)
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout)
     assert out["12080"]  # at 12.8 the hook
-    # at 13.0 the mock's _v2, unhooked, and it runs with its context
+    # at 13.0 not the old ABI's hook: the _v2's own, with its context
     assert out["13000"] == [False, True]
     assert out["v2_with_a_context"] == 0
 
 
 def test_the_abi_probe_lists_the_variant_of_another_abi(libs):
     """``python -m vtpu_torch.bench.abi`` on the mock driver, without the
-    interposer: of every hooked variant, only cuCtxSynchronize at 13.0 is
-    answered with another ABI (the card's CUDA 13.0 driver answers the same,
-    PERF.md)."""
+    interposer: every hooked variant, those of the copy table's continued
+    lines too (103), is resolved at 12.8 and 13.0, and none is answered
+    with another ABI. Before cuCtxSynchronize_v2 had its hook, the one
+    listed was cuCtxSynchronize at 13.0 (the card's CUDA 13.0 driver
+    answers the same, PERF.md)."""
     env = {k: v for k, v in os.environ.items() if k != "LD_PRELOAD"}
     env["LD_LIBRARY_PATH"] = native.mock_cuda_dir()
     proc = subprocess.run([sys.executable, "-m", "vtpu_torch.bench.abi"],
@@ -698,7 +702,5 @@ def test_the_abi_probe_lists_the_variant_of_another_abi(libs):
                           timeout=60)
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout)
-    assert out["driver_version"] == 12080 and out["variants"] >= 70
-    assert out["other_abi"] == {"12080": [], "13000": [{
-        "base": "cuCtxSynchronize", "hook": "cuCtxSynchronize",
-        "driver": "cuCtxSynchronize_v2"}]}
+    assert out["driver_version"] == 12080 and out["variants"] == 103
+    assert out["other_abi"] == {"12080": [], "13000": []}

@@ -730,3 +730,38 @@ def test_released_pod_times_spans_not_launches(tmp_path, libs):
     assert limited["events"] >= limited["launches"], limited
     assert limited["launches"] <= 0.75 * released["launches"], (
         limited, released)
+
+
+def test_a_kernel_shorter_than_its_launch_call_is_charged_its_own_time(
+        tmp_path, libs):
+    """F4's residue (pod U2 read 1.008x its device share on the card): 50
+    us kernels whose launch call spends 100 us on the host, launched back
+    to back with no SM limit. Each kernel ends while the next launch's call
+    runs, a drain that launch's entry cannot see, so a sampled span read
+    the stream busy through every such call and the run was charged
+    about 3.3x the mock's kernel time. The wait from a kernel's end to the
+    next launch's return is now taken off the sample, the kernel's end read
+    on the host's clock from the stream's anchor. After a 0.5 s warm-up (a
+    stream's spans are charged whole until its first sample), a 1 s burst
+    is charged within phase (c)'s charge bound of the mock's busy time
+    (0.8-1.1x)."""
+    kernel_ns, call_ns = 50_000, 100_000
+    env, cache = child_env(tmp_path, "short", MOCK_CUDA_KERNEL_NS=kernel_ns,
+                           MOCK_CUDA_LAUNCH_NS=call_ns)
+    proc = spawn(env, "steady")
+    try:
+        assert line(proc)["ready"]
+        ask(proc, "0.5")
+        with JaxRegionView(cache) as view:
+            (before,) = view.procs()
+            burst = ask(proc, "1.0")
+            (after,) = view.procs()
+        proc.communicate("", timeout=30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    assert burst["hooked"] and burst["launches"] > 2000, burst
+    ratio = (after.launch_ns - before.launch_ns) / (
+        burst["launches"] * kernel_ns)
+    assert 0.8 <= ratio <= 1.1, (ratio, burst)

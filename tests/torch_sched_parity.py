@@ -14,6 +14,8 @@ import ast
 import base64
 import contextlib
 import copy
+import dataclasses
+import functools
 import importlib
 import inspect
 import json
@@ -23,6 +25,7 @@ import types as pytypes
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+from _pytest.fixtures import FixtureFunctionDefinition
 
 from vtpu import device as jax_device
 from vtpu.device import config as jax_config
@@ -43,7 +46,7 @@ from vtpu_torch.scheduler.routes import build_app as port_build_app
 from vtpu_torch.trace import tracer as port_tracer
 from vtpu_torch.util import codec, nodelock as port_nodelock
 from vtpu_torch.util.client import FakeKubeClient as PortClient
-from vtpu_torch.util.types import DeviceInfo, MeshCoord
+from vtpu_torch.util.types import GPU_VENDOR, DeviceInfo, MeshCoord
 
 H100 = "NVIDIA-NVIDIA H100 80GB HBM3"
 H100_MB = 81559
@@ -341,14 +344,20 @@ def decode_review(review: Dict) -> Dict:
 # ---------------------------------------------------------------------------
 #
 # A test function of the JAX package's suite (tests/test_ha.py, the chaos
-# files, tests/test_migrate.py) runs here twice on the same inputs: once as
-# written, once with every name it takes from ``vtpu`` bound to the port's
-# object of the same name in the same module (``vtpu.a.b`` ->
-# ``vtpu_torch.a.b``). Helpers it takes from other test modules are rebound
-# the same way, and imports inside a function body find the port's modules
-# (sys.modules is swapped for the call). Both runs see the device plane as
-# the port's: ``types``' TPU resource and handshake names read as the
-# NVIDIA ones, and the JAX registry holds the port's GPUDevices. Each run
+# files, tests/test_migrate.py, tests/test_torch_replay_*.py's modules)
+# runs here twice on the same inputs: once as written, once with every name
+# it takes from ``vtpu`` bound to the port's object of the same name in the
+# same module (``vtpu.a.b`` -> ``vtpu_torch.a.b``, PORT_MODULES and
+# PORT_ATTRS where the port's name differs). Helpers it takes from other
+# test modules are rebound the same way, and imports inside a function
+# body find the port's modules (sys.modules is swapped for the call). Its
+# module's fixtures are set up from each side's view, every view is built
+# afresh for each run, and the port side reads ``vTPU`` as ``vGPU`` in the
+# test's string constants. Both runs see the device plane as the port's:
+# the TPU's resource, handshake, type-constraint and ``ici-bind`` names
+# read as the NVIDIA ones (GPU_NAMES), a request a test builds names the
+# GPU's vendor, and the JAX registry holds the port's GPUDevices; but an
+# AS_WRITTEN module's JAX side runs with the TPU's own names. Each run
 # records what it wrote to its apiserver (every pod annotation, deletion,
 # binding, node annotation, each lease's holder and generation), each
 # fenced commit and each recover()'s replay count; the records are
@@ -362,7 +371,26 @@ GPU_NAMES = {
     "RESOURCE_HOST_MEM": api.RESOURCE_HOST_MEM,
     "HANDSHAKE_ANNO": api.HANDSHAKE_ANNO,
     "NODE_REGISTER_ANNO": api.NODE_REGISTER_ANNO,
+    "TPU_VENDOR": GPU_VENDOR,
+    "USE_TPUTYPE_ANNO": api.USE_GPUTYPE_ANNO,
+    "NOUSE_TPUTYPE_ANNO": api.NOUSE_GPUTYPE_ANNO,
+    "ICI_BIND_ANNO": api.NUMA_BIND_ANNO,
 }
+#: names only the port's side reads as the GPU's: the JAX workload reads
+#: its own env
+PORT_NAMES = {"ENV_TENSORCORE_LIMIT": api.ENV_SM_LIMIT}
+#: JAX modules and names whose port counterpart has another name
+PORT_MODULES = {"vtpu.contracts": "vtpu_torch.api",
+                "vtpu.device.tpu": "vtpu_torch.device.gpu"}
+PORT_ATTRS = {"TPUDevices": "GPUDevices"}
+#: test modules of the TPU vendor and the workload side: their JAX side
+#: runs as written (the TPU's names, the JAX registry alone), their
+#: port side with the GPU's names and PORT_LITERALS
+AS_WRITTEN = {"tests.test_device", "tests.test_enforce"}
+#: a whole string constant of an AS_WRITTEN test's code, as the port's
+#: side reads it: the vendor's tag (every test's port side also reads
+#: ``vTPU`` as ``vGPU`` anywhere in a constant, as to_port_strings does)
+PORT_LITERALS = {"TPU": GPU_VENDOR}
 #: JAX names with no port counterpart that only tag a function at import
 KEEP_JAX = {("vtpu.contracts", "covers_edge")}
 #: annotations whose values hold a clock reading: compared for presence
@@ -378,28 +406,44 @@ _SCHEDS: List[Any] = []
 
 class GpuNames:
     """A ``types``/``contracts`` module whose TPU device-plane names read
-    as the GPU's."""
+    as the GPU's (``names``)."""
 
-    def __init__(self, mod) -> None:
+    def __init__(self, mod, names: Dict[str, Any]) -> None:
         self._mod = mod
+        self._names = names
 
     def __getattr__(self, name: str):
-        if name in GPU_NAMES:
-            return GPU_NAMES[name]
+        if name in self._names:
+            return self._names[name]
         return getattr(self._mod, name)
 
 
+def gpu_request(cls):
+    """The JAX ``ContainerDeviceRequest`` with the GPU's vendor as its
+    default type: a request a test builds names the vendor the JAX
+    side's registry places for it, as the port's does."""
+    at = [f.name for f in dataclasses.fields(cls)].index("type")
+
+    def make(*args, **kw):
+        if len(args) <= at:
+            kw.setdefault("type", GPU_VENDOR)
+        return cls(*args, **kw)
+    return make
+
+
 def _port_modname(name: str) -> str:
-    if name == "vtpu.contracts":
-        return "vtpu_torch.api"
+    if name in PORT_MODULES:
+        return PORT_MODULES[name]
     return "vtpu_torch" + name[len("vtpu"):]
 
 
-def _resolve(modname: str, attr: Optional[str], port: bool):
+def _resolve(modname: str, attr: Optional[str], port: bool,
+             as_written: bool = False):
     """``from modname import attr`` (``import modname`` when attr is None)
-    for one side."""
+    for one side; ``as_written``: the JAX side sees its own names."""
     if port and (modname, attr) not in KEEP_JAX:
         modname = _port_modname(modname)
+        attr = PORT_ATTRS.get(attr, attr)
     mod = importlib.import_module(modname)
     value = mod
     if attr is not None:
@@ -407,9 +451,17 @@ def _resolve(modname: str, attr: Optional[str], port: bool):
             value = importlib.import_module(f"{modname}.{attr}")
         except ImportError:
             value = getattr(mod, attr)
+    if as_written and not port:
+        return value
     if isinstance(value, pytypes.ModuleType) and value.__name__.split(
             ".")[-1] in ("types", "contracts", "api"):
-        return GpuNames(value)
+        names = {**GPU_NAMES, **PORT_NAMES} if port else dict(GPU_NAMES)
+        if not port and hasattr(value, "ContainerDeviceRequest"):
+            names["ContainerDeviceRequest"] = gpu_request(
+                value.ContainerDeviceRequest)
+        return GpuNames(value, names)
+    if not port and attr == "ContainerDeviceRequest":
+        return gpu_request(value)
     if value is jax_device:
         return JaxDeviceWithGpus()
     return value
@@ -428,6 +480,7 @@ class JaxDeviceWithGpus:
         jax_device.register(GPUDevices())
 
 
+@functools.lru_cache(maxsize=None)
 def _imports(modname: str):
     """(module level, anywhere): the ``from vtpu... import`` and ``from
     tests... import`` bindings of a test module's source."""
@@ -454,34 +507,87 @@ def _imports(modname: str):
 _VIEWS: Dict[Tuple[str, bool], Dict[str, Any]] = {}
 
 
-def _rebind(obj, glb: Dict[str, Any], modname: str, port: bool):
+def _port_const(c, literals: Dict[str, str]):
+    if isinstance(c, str):
+        return literals.get(c, c.replace("vTPU", "vGPU"))
+    if isinstance(c, pytypes.CodeType):
+        return _port_code(c, literals)
+    if isinstance(c, (tuple, frozenset)):
+        return type(c)(_port_const(x, literals) for x in c)
+    return c
+
+
+def _port_code(code: pytypes.CodeType,
+               literals: Dict[str, str]) -> pytypes.CodeType:
+    """``code`` with the port's strings in its constants: ``vTPU`` ->
+    ``vGPU`` anywhere, a whole constant in ``literals`` replaced."""
+    return code.replace(co_consts=tuple(_port_const(c, literals)
+                                        for c in code.co_consts))
+
+
+class Fixture:
+    """A test module's fixture function in one side's view."""
+
+    def __init__(self, fn, autouse: bool) -> None:
+        self.fn = fn
+        self.autouse = autouse
+
+
+def _rebind(obj, glb: Dict[str, Any], modname: str, port: bool,
+            class_cell=None):
+    """``obj`` of test module ``modname`` bound to one side's globals: a
+    function's code reads ``glb`` (and on the port's side the port's
+    strings), a class is rebuilt of rebound members (``super()`` finds the
+    rebuilt class through ``class_cell``), a fixture keeps its flags."""
     if isinstance(obj, pytypes.FunctionType) and obj.__module__ == modname:
-        fn = pytypes.FunctionType(obj.__code__, glb, obj.__name__,
-                                  obj.__defaults__, obj.__closure__)
+        literals = PORT_LITERALS if modname in AS_WRITTEN else {}
+        code = _port_code(obj.__code__, literals) if port else obj.__code__
+        closure = obj.__closure__
+        if class_cell is not None and "__class__" in code.co_freevars:
+            closure = tuple(
+                class_cell if name == "__class__" else cell
+                for name, cell in zip(code.co_freevars, closure))
+        defaults = obj.__defaults__
+        if port and defaults:
+            defaults = tuple(_port_const(d, literals) for d in defaults)
+        fn = pytypes.FunctionType(code, glb, obj.__name__, defaults,
+                                  closure)
         fn.__kwdefaults__ = obj.__kwdefaults__
         fn.__dict__.update(obj.__dict__)
         fn.__qualname__ = obj.__qualname__
         return fn
+    if isinstance(obj, FixtureFunctionDefinition):
+        raw = obj._get_wrapped_function()
+        if raw.__module__ != modname:
+            return obj
+        return Fixture(_rebind(raw, glb, modname, port),
+                       obj._fixture_function_marker.autouse)
     if isinstance(obj, (staticmethod, classmethod)):
-        return type(obj)(_rebind(obj.__func__, glb, modname, port))
+        return type(obj)(_rebind(obj.__func__, glb, modname, port,
+                                 class_cell))
     if isinstance(obj, property):
-        return property(*(_rebind(f, glb, modname, port) if f else None
+        return property(*(_rebind(f, glb, modname, port, class_cell)
+                          if f else None
                           for f in (obj.fget, obj.fset, obj.fdel)))
     if isinstance(obj, type) and obj.__module__ == modname:
         bases = tuple(module_view(b.__module__, port)[b.__name__]
                       if b.__module__.startswith("tests.") else b
                       for b in obj.__bases__)
-        body = {k: _rebind(v, glb, modname, port)
+        cell = pytypes.CellType()
+        body = {k: _rebind(v, glb, modname, port, cell)
                 for k, v in obj.__dict__.items()
                 if k not in ("__dict__", "__weakref__")}
-        return type(obj.__name__, bases, body)
+        cls = type(obj.__name__, bases, body)
+        cell.cell_contents = cls
+        return cls
     return obj
 
 
 def module_view(modname: str, port: bool) -> Dict[str, Any]:
     """The globals of test module ``modname`` for one side: its ``vtpu``
-    names bound to that side's objects (the GPU's names in ``types``), the
-    recording apiserver and scheduler, its test helpers rebound alike."""
+    names bound to that side's objects (the GPU's names in ``types``,
+    but on the JAX side of an AS_WRITTEN module), the recording apiserver
+    and scheduler, its test helpers and fixtures rebound alike."""
     key = (modname, port)
     if key in _VIEWS:
         return _VIEWS[key]
@@ -494,7 +600,7 @@ def module_view(modname: str, port: bool) -> Dict[str, Any]:
             glb[name] = module_view(src, port)[attr] if hasattr(
                 importlib.import_module(src), attr) else glb[name]
         else:
-            glb[name] = _resolve(src, attr, port)
+            glb[name] = _resolve(src, attr, port, modname in AS_WRITTEN)
     for name in ("FakeKubeClient", "Scheduler"):
         if name in glb:
             glb[name] = _recording(port)[name]
@@ -656,31 +762,70 @@ def _set_parent_attr(name: str, mod) -> None:
         setattr(sys.modules[parent], leaf, mod)
 
 
+def _finish(gen) -> None:
+    """A generator fixture's teardown, as pytest runs it."""
+    try:
+        next(gen)
+    except StopIteration:
+        return
+    raise RuntimeError(f"fixture {gen.__name__} yielded twice")
+
+
+def _fixture(name: str, view: Dict[str, Any], values: Dict[str, Any],
+             stack: contextlib.ExitStack, wanted_by: str):
+    """Fixture ``name``, set up once from ``view`` (its teardown on
+    ``stack``) or taken from ``values`` (pytest's own: tmp_path,
+    monkeypatch, capsys)."""
+    if name not in values:
+        fx = view.get(name)
+        if not isinstance(fx, Fixture):
+            raise TypeError(f"{wanted_by} wants fixture {name}")
+        out = fx.fn(**_fixture_args(fx.fn, view, values, stack))
+        if inspect.isgenerator(out):
+            gen, out = out, next(out)
+            stack.callback(_finish, gen)
+        values[name] = out
+    return values[name]
+
+
+def _fixture_args(fn, view: Dict[str, Any], values: Dict[str, Any],
+                  stack: contextlib.ExitStack) -> Dict[str, Any]:
+    """The fixtures ``fn`` asks for; a parameter with a default keeps it."""
+    return {name: _fixture(name, view, values, stack, fn.__name__)
+            for name, param in inspect.signature(fn).parameters.items()
+            if param.default is inspect.Parameter.empty}
+
+
 def run_reference_test(modname: str, test: str, port: bool,
-                       tmp_path=None) -> List[str]:
+                       tmp_path=None, capsys=None) -> List[str]:
     """Run the JAX package's ``modname::test`` on one side (the port's
-    objects when ``port``); its record, sorted (threads may reorder
-    writes to different objects)."""
+    objects when ``port``), its module's fixtures (autouse ones first) set
+    up from that side's view and torn down after it; its record, sorted
+    (threads may reorder writes to different objects). Every run builds
+    its views afresh, so no case sees a global an earlier one set."""
     import pytest
 
+    _VIEWS.clear()
     view = module_view(modname, port)
     fn = view[test]
     del _LOG[:]
     mp = pytest.MonkeyPatch()
-    args = {}
-    for name in inspect.signature(fn).parameters:
-        if name == "tmp_path":
-            tmp_path.mkdir(parents=True, exist_ok=True)
-            args[name] = tmp_path
-        elif name == "monkeypatch":
-            args[name] = mp
-        else:
-            raise TypeError(f"{test} wants fixture {name}")
+    if tmp_path is not None:
+        tmp_path.mkdir(parents=True, exist_ok=True)
+    if capsys is not None:
+        capsys.readouterr()
+    values = {name: value for name, value in (
+        ("tmp_path", tmp_path), ("monkeypatch", mp), ("capsys", capsys))
+        if value is not None}
     del _SCHEDS[:]
     register_vendors()
     try:
-        with _fences_recorded(), _swapped_modules(modname, port):
-            fn(**args)
+        with _fences_recorded(), _swapped_modules(modname, port), \
+                contextlib.ExitStack() as stack:
+            for name, fx in list(view.items()):
+                if isinstance(fx, Fixture) and fx.autouse:
+                    _fixture(name, view, values, stack, test)
+            fn(**_fixture_args(fn, view, values, stack))
             for s in _SCHEDS:
                 with contextlib.suppress(Exception):
                     s.committer.drain(timeout=1.0)
@@ -695,4 +840,65 @@ def run_reference_test(modname: str, test: str, port: bool,
     leases = {json.dumps(e) for e in _LOG if e[0] == "lease"}
     rest = [json.dumps(to_port_strings(e), sort_keys=True, default=str)
             for e in _LOG if e[0] != "lease"]
-    return sorted(rest) + sorted(leases)
+    return Record(sorted(rest) + sorted(leases), final_state(_LOG))
+
+
+class Record(list):
+    """A run's record, its writes sorted; ``final``: the apiserver's state
+    they leave (final_state)."""
+
+    def __init__(self, writes, final) -> None:
+        super().__init__(writes)
+        self.final = final
+
+
+def final_state(log) -> Dict[str, Any]:
+    """What the writes of ``log``, in order, leave in the apiserver: each
+    pod's annotations (a patch's None removes a key), binding and whether
+    it was deleted (a pod patched after its deletion was made again), and
+    each node's annotations, after ``vTPU`` -> ``vGPU``. A write the commit
+    pipeline queued and a later decision superseded before it was flushed
+    leaves no trace here."""
+    pods: Dict[str, Dict[str, Any]] = {}
+    nodes: Dict[str, Dict[str, Any]] = {}
+
+    def merge(into: Dict[str, Any], annos: Dict[str, Any]) -> None:
+        for key, value in annos.items():
+            if value is None:
+                into.pop(key, None)
+            else:
+                into[key] = value
+
+    def pod(ns: str, name: str) -> Dict[str, Any]:
+        return pods.setdefault(f"{ns}/{name}", {
+            "annotations": {}, "node": None, "deleted": False})
+
+    for e in log:
+        if e[0] == "pod":
+            p = pod(e[1], e[2])
+            if p["deleted"]:
+                p.update(annotations={}, node=None, deleted=False)
+            merge(p["annotations"], e[-1])
+        elif e[0] == "delete":
+            pod(e[1], e[2]).update(annotations={}, node=None, deleted=True)
+        elif e[0] == "bind":
+            pod(e[1], e[2])["node"] = e[3]
+        elif e[0] == "node":
+            merge(nodes.setdefault(e[1], {}), e[2])
+    return to_port_strings({"pods": pods, "nodes": nodes})
+
+
+def replay_cases(files, left_out: Dict[str, Dict[str, str]]):
+    """One pytest case for each test function of each module in ``files``
+    but those ``left_out`` names (module -> test -> reason)."""
+    import pytest
+
+    out = []
+    for modname in files:
+        mod = importlib.import_module(modname)
+        for name in sorted(dir(mod)):
+            if name.startswith("test_") and callable(getattr(mod, name)) \
+                    and name not in left_out.get(modname, {}):
+                out.append(pytest.param(
+                    modname, name, id=f"{modname.split('.')[1]}::{name}"))
+    return out

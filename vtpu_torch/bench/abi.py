@@ -38,8 +38,10 @@ def hooked_variants() -> List[Tuple[str, int, int, str]]:
     every hook, read from libvgpu.c"""
     with open(os.path.join(native.CSRC, "libvgpu.c")) as f:
         src = f.read()
-    rows = re.findall(r'\[H_\w+\] = \{"(\w+)", (\d+), (\d), "(\w+)"', src)
-    rows += re.findall(r'X\(\w+, "(\w+)", (\d+), (\d), (\w+),', src)
+    src = re.sub(r"\\\n", " ", src)  # the copy table's continued lines
+    rows = re.findall(r'\[H_\w+\] = \{"(\w+)",\s*(\d+),\s*(\d),\s*"(\w+)"',
+                      src)
+    rows += re.findall(r'X\(\w+,\s*"(\w+)",\s*(\d+),\s*(\d),\s*(\w+),', src)
     return sorted({(b, int(v), int(p), e) for b, v, p, e in rows})
 
 

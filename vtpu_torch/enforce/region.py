@@ -183,14 +183,29 @@ def _load(path: str):
     lib.vtpu_region_gc.argtypes = [P]
     lib.vtpu_try_alloc.restype = ctypes.c_int
     lib.vtpu_try_alloc.argtypes = [P, i32, ctypes.c_int, u64]
+    lib.vtpu_force_alloc.argtypes = [P, i32, ctypes.c_int, u64]
     lib.vtpu_free.argtypes = [P, i32, ctypes.c_int, u64]
     lib.vtpu_region_used.restype = u64
     lib.vtpu_region_used.argtypes = [P, ctypes.c_int]
     lib.vtpu_heartbeat.argtypes = [P, i32]
+    lib.vtpu_note_launch.argtypes = [P, i32, u64]
+    lib.vtpu_note_complete.argtypes = [P, i32, u64, ctypes.c_uint32]
+    lib.vtpu_inflight.restype = i32
+    lib.vtpu_inflight.argtypes = [P, ctypes.c_int64]
+    lib.vtpu_util_try_acquire.restype = ctypes.c_int
+    lib.vtpu_util_try_acquire.argtypes = [P, ctypes.c_int, ctypes.c_uint32,
+                                          ctypes.c_int64]
+    lib.vtpu_util_debit.argtypes = [P, ctypes.c_uint32, u64]
+    lib.vtpu_prof_configure.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.vtpu_prof_flush.restype = ctypes.c_int
+    lib.vtpu_prof_flush.argtypes = [P]
+    lib.vtpu_prof_bucket_index.restype = ctypes.c_int
+    lib.vtpu_prof_bucket_index.argtypes = [u64]
     lib.vtpu_region_configure_host.restype = ctypes.c_int
     lib.vtpu_region_configure_host.argtypes = [P, u64]
     lib.vtpu_host_try_alloc.restype = ctypes.c_int
     lib.vtpu_host_try_alloc.argtypes = [P, i32, u64]
+    lib.vtpu_host_force_alloc.argtypes = [P, i32, u64]
     lib.vtpu_host_free.argtypes = [P, i32, u64]
     lib.vtpu_region_host_used.restype = u64
     lib.vtpu_region_host_used.argtypes = [P]
@@ -267,11 +282,41 @@ def prof_percentile_ns(hist: List[int], q: float) -> float:
     return bounds[-2]
 
 
+#: the static header fields the v5 digest covers, in the C digest's order
+#: (shared_region.c vtpu_region_header_checksum); the magic is digested as
+#: the constant, since init stamps the digest before the magic is stored
+_CSUM_FIELDS = ("version", "num_devices", "priority", "hbm_limit",
+                "core_limit", "util_policy", "dev_uuid", "host_limit")
+
+
+def _py_header_checksum(struct: SharedRegionStruct) -> int:
+    """FNV-1a over the static header fields' bytes in Python, the C
+    digest's twin bit for bit (vtpu/enforce/region.py:352-370)."""
+    mask = (1 << 64) - 1
+    h = VTPU_HEADER_CSUM_INIT
+
+    def mix(h: int, data: bytes) -> int:
+        for b in data:
+            h = ((h ^ b) * VTPU_HEADER_CSUM_PRIME) & mask
+        return h
+
+    h = mix(h, VTPU_SHARED_MAGIC.to_bytes(4, "little"))
+    cls = type(struct)
+    base = ctypes.addressof(struct)
+    for name in _CSUM_FIELDS:
+        f = getattr(cls, name)
+        h = mix(h, ctypes.string_at(base + f.offset, f.size))
+    return h
+
+
 def header_checksum_of(struct: SharedRegionStruct) -> int:
     """The v5 header digest of a struct (live view or bulk copy), by the C
-    library's own function."""
-    return int(load_core_library().vtpu_region_header_checksum(
-        ctypes.byref(struct)))
+    library's own function, or in Python where it cannot be loaded."""
+    try:
+        lib = load_core_library()
+    except OSError:
+        return _py_header_checksum(struct)
+    return int(lib.vtpu_region_header_checksum(ctypes.byref(struct)))
 
 
 def _prev_abi(magic: int, version: int) -> bool:
@@ -378,6 +423,13 @@ class SharedRegion:
         return self._lib.vtpu_try_alloc(
             self._ptr, pid or os.getpid(), dev, bytes_) == 0
 
+    def force_alloc(self, bytes_: int, dev: int = 0,
+                    pid: Optional[int] = None) -> None:
+        """Charge past the limit (what the interposer charges after the
+        fact, e.g. memory a first launch grew)."""
+        self._lib.vtpu_force_alloc(self._ptr, pid or os.getpid(), dev,
+                                   bytes_)
+
     def free(self, bytes_: int, dev: int = 0,
              pid: Optional[int] = None) -> None:
         self._lib.vtpu_free(self._ptr, pid or os.getpid(), dev, bytes_)
@@ -390,11 +442,55 @@ class SharedRegion:
         return self._lib.vtpu_host_try_alloc(
             self._ptr, pid or os.getpid(), bytes_) == 0
 
+    def host_force_alloc(self, bytes_: int,
+                         pid: Optional[int] = None) -> None:
+        self._lib.vtpu_host_force_alloc(self._ptr, pid or os.getpid(),
+                                        bytes_)
+
     def host_free(self, bytes_: int, pid: Optional[int] = None) -> None:
         self._lib.vtpu_host_free(self._ptr, pid or os.getpid(), bytes_)
 
     def host_used(self) -> int:
         return self._lib.vtpu_region_host_used(self._ptr)
+
+    # -- the compute plane, as libvgpu.so drives it -----------------------
+    def note_launch(self, est_ns: int = 0,
+                    pid: Optional[int] = None) -> None:
+        self._lib.vtpu_note_launch(self._ptr, pid or os.getpid(), est_ns)
+
+    def note_complete(self, ns: int = 0, pid: Optional[int] = None,
+                      dev_mask: int = 1) -> None:
+        self._lib.vtpu_note_complete(self._ptr, pid or os.getpid(), ns,
+                                     dev_mask)
+
+    def inflight(self, max_age_ns: int = 0) -> int:
+        return self._lib.vtpu_inflight(self._ptr, max_age_ns)
+
+    def util_try_acquire(self, limit_pct: int,
+                         burst_ns: int = 200_000_000,
+                         dev: int = 0) -> bool:
+        return bool(self._lib.vtpu_util_try_acquire(
+            self._ptr, dev, limit_pct, burst_ns))
+
+    def util_debit(self, ns: int, dev_mask: int = 1) -> None:
+        """Debit the SM-limit bucket only (no process slot is touched)."""
+        self._lib.vtpu_util_debit(self._ptr, dev_mask, ns)
+
+    # -- the profile plane of this process's copy of the C library --------
+    def prof_configure(self, enabled: bool, sample_every: int = 1) -> None:
+        """This process's profiling switch and sampling (libvgpu.so reads
+        ``VTPU_PROFILE`` instead)."""
+        self._lib.vtpu_prof_configure(1 if enabled else 0, sample_every)
+
+    def prof_flush(self) -> int:
+        """Drain the calling thread's batched profile counters into the
+        region; the number of callsite cells flushed."""
+        return self._lib.vtpu_prof_flush(self._ptr)
+
+    def prof_bucket_index(self, ns: int) -> int:
+        """The C library's own log2 bin of ``ns`` (prof_bucket_index's
+        twin)."""
+        return self._lib.vtpu_prof_bucket_index(ns)
 
 
 @dataclass

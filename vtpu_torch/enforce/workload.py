@@ -190,8 +190,12 @@ class Enforcer:
         on record), and the calls measured in that mode (first launches,
         module loads, first look-ups): their count, the bytes the card grew
         by at a function's load before its first launch and across the
-        calls, the readings the card shrank in, their total and longest ns.
-        Zeros without the interposer."""
+        calls, the readings the card shrank in, their total and longest ns;
+        and the driver objects measured there (streams, allocations that
+        are not whole 2 MiB pages): their calls, the card's net growth
+        across the allocations and across the streams, the small
+        allocations' bytes live and the footprint's charge for the pages
+        past them. Zeros without the interposer."""
         out = (ctypes.c_uint64 * 8)()
         fn = getattr(ctypes.CDLL(None), "vgpu_footprint", None) \
             if self.interposed else None
@@ -208,6 +212,15 @@ class Enforcer:
             fn.restype = None
             fn.argtypes = [ctypes.c_void_p]
             fn(first)
+        objs = (ctypes.c_uint64 * 5)()
+        fn = getattr(ctypes.CDLL(None), "vgpu_objects", None) \
+            if self.interposed else None
+        if fn is not None:
+            fn.restype = None
+            fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+            fn(dev, objs)
+        signed = [int(v) - (1 << 64) if v >= 1 << 63 else int(v)
+                  for v in objs]
         return {"mode": mode, "nvml_pid": int(out[1]), "bytes": int(out[2]),
                 "reads": int(out[3]), "read_ns": int(out[4]),
                 "read_max_ns": int(out[5]), "growth": int(out[6]),
@@ -215,7 +228,10 @@ class Enforcer:
                 "calls_measured": int(first[0]),
                 "load_bytes": int(first[1]), "call_bytes": int(first[2]),
                 "shrank": int(first[3]), "measure_ns": int(first[4]),
-                "measure_max_ns": int(first[5])}
+                "measure_max_ns": int(first[5]),
+                "object_calls": signed[0], "small_alloc_pages": signed[1],
+                "stream_pages": signed[2], "small_alloc_live": signed[3],
+                "page_charge": signed[4]}
 
     def kernel_keys(self) -> dict:
         """How libvgpu.so keyed the kernels it charged on a limited device:
